@@ -1,0 +1,28 @@
+"""StandardScaler as tensor ops.
+
+Port of ``mrgan_tpu/ops/scaler.py``: fit mean and (population) std on the
+train split; constant columns pass through unscaled (scikit-learn: scale_
+of 0 variance -> 1). NEAR-constant columns (std at or below ~10 eps relative to
+the column's magnitude, e.g. mel bins pinned at the top_db floor) pass
+through too: dividing by an f32 cancellation-noise std amplifies junk ~1e6x.
+"""
+
+import torch
+
+# Column std at or below NEAR_CONSTANT_RTOL * max(1, |mean|) is treated as
+# constant (f32 cancellation noise, ~10 eps).
+NEAR_CONSTANT_RTOL = 1.2e-6
+
+
+def fit(x_train):
+    """Return (mean, scale) fitted on (N, D) x_train; StandardScaler
+    semantics with the near-constant pass-through guard."""
+    mean = torch.mean(x_train, dim=0)
+    var = torch.mean(torch.square(x_train - mean), dim=0)
+    std = torch.sqrt(var)
+    tiny = std <= NEAR_CONSTANT_RTOL * torch.clamp(torch.abs(mean), min=1.0)
+    return mean, torch.where(tiny, torch.ones_like(std), std)
+
+
+def transform(x, mean, scale):
+    return (x - mean) / scale

@@ -1,0 +1,57 @@
+"""The port and chip_smoke.py import where JAX, scikit-learn, orbax and the
+JAX package are absent, as on the machine with the card."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import mrgan_tpu_torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CHILD = """
+import importlib, sys
+for name in ("jax", "jaxlib", "sklearn", "orbax", "mrgan_tpu"):
+    sys.modules[name] = None  # any import of them now raises ImportError
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "sklearn", "orbax", "mrgan_tpu")
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+print("imported", len(sys.argv) - 1)
+"""
+
+
+def _port_modules():
+    names = [mrgan_tpu_torch.__name__]
+    for info in pkgutil.walk_packages(mrgan_tpu_torch.__path__,
+                                      mrgan_tpu_torch.__name__ + "."):
+        names.append(info.name)
+    return names
+
+
+def test_port_imports_without_jax():
+    names = _port_modules() + ["chip_smoke"]
+    assert "mrgan_tpu_torch.ops.mel_cuda" in names
+    assert "mrgan_tpu_torch.serve" in names
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD, *names], cwd=ROOT,
+        capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": ROOT})
+    assert proc.returncode == 0, proc.stderr
+    assert "imported %d" % len(names) in proc.stdout
+
+
+def test_port_sources_name_no_jax():
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "mrgan_tpu_torch")):
+        paths += [os.path.join(dirpath, f) for f in files
+                  if f.endswith((".py", ".cu"))]
+    for path in paths:
+        with open(path) as fh:
+            src = fh.read()
+        for word in ("import jax", "from jax", "sklearn", "orbax",
+                     "mrgan_tpu."):
+            assert word not in src, (path, word)
