@@ -6,17 +6,24 @@ Phases (any failure raises and the script exits non-zero):
 
 1. The card (``nvidia-smi`` name and power limit) and the fp32 numeric policy.
 2. Build ``mrgan_tpu_torch/csrc/mel_power.cu`` with nvcc for sm_90a.
-3. The kernel against its plain PyTorch version on the card: mel power at
-   F = 70 frames and on 72 / 300 / 500 / 512 request windows (both thread
-   layouts the kernel has), log-mel within 0.02 dB, and the golden
+3. The kernel against its plain PyTorch version on the card: every variant
+   (tile and bin grouping) the wrapper can pick, at F = 19, 114, 1,368,
+   5,700 and 48,128 frames and on unaligned rows (F = 30), within the mel
+   power bars and bitwise equal over two launches; then the picked variant at F = 70 and on 72 / 300 /
+   500 / 512 request windows, log-mel within 0.02 dB, and the golden
    librosa-0.5.1 fixtures within 7e-3 dB through ``frontend_logmel``.
 4. The full-width modality-5 classifier (3,712 features: temperature +
    force0 + force1 at 4 s, log-mel of 0.2 s of contact mic): seeded random
    discriminator, scaler fit on 72 seeded windows, save -> load, then
    requests of 1, 6 and 72 pokes through ``classify_pokes`` and one raw poke
-   through ``classify_raw_poke``, counting kernel launches; each request's
-   logits are held to a run of the plain mel path.
-5. Times from CUDA events (median of 20 runs after warm-up).
+   through ``classify_raw_poke``, counting the launches of both kernels
+   (the DFT kernel and the bin-group sum); each request's logits are held
+   to a run of the plain mel path.
+5. Times from CUDA events (median of 20 runs after warm-up): requests, and
+   kernel vs plain at F = 19, 114, 1,368 and 48,128; beside them the device
+   time of the same calls from ``torch.profiler`` (the sum of their
+   kernels' durations), which leaves out host time and gives each
+   request's device-busy share.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA
@@ -76,6 +83,25 @@ def cuda_ms(fn, runs=RUNS, warmup=WARMUP):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, runs=RUNS):
+    """Milliseconds the device spends in the kernels fn() launches, from
+    torch.profiler, per call (None if the profiler saw no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages())
+    return total / 1e3 / runs if total > 0 else None
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else "%.4f ms" % ms
 
 
 def request_windows(n, seed):
@@ -152,7 +178,57 @@ def mel_power_f64(frames):
     return (re * re + im * im) @ melw
 
 
-def kernel_vs_plain(dev, windows):
+def framed_input(dev, windows, n, audio_len, seed=1):
+    """Zero-mean audio for n windows: the request windows less the ADC
+    midpoint at 0.2 s, seeded random audio for the 1 s frontend shape.
+    Returns the reflect-padded rows, frames per row and the (F, n_fft)
+    frames as a view."""
+    audio = (windows["contact"] - 2048.0 if audio_len == AUDIO_LEN else
+             torch.from_numpy(np.random.RandomState(seed).randn(
+                 n, audio_len).astype(np.float32) * 100).to(dev))
+    audio = audio.repeat(-(-n // len(audio)), 1)[:n].contiguous()
+    padded = mel.reflect_pad(audio, N_FFT).contiguous()
+    return (padded, mel.num_frames(audio_len, HOP),
+            padded.unfold(-1, N_FFT, HOP).reshape(-1, N_FFT))
+
+
+# (windows, samples each) for F = 19, 114, 1,368, 5,700 and 48,128 frames,
+# and F = 30 from rows of 4,801 + 2,048 samples, which are not 16-byte
+# aligned (the kernel's 4-byte copies)
+VARIANT_SHAPES = ((1, AUDIO_LEN), (6, AUDIO_LEN), (72, AUDIO_LEN),
+                  (300, AUDIO_LEN), (512, 48000), (3, 4801))
+
+
+def variants_vs_plain(dev, windows, sms):
+    """Phase 3a: every (tile, groups) variant the wrapper can pick, held to
+    the plain path at the mel power bars, twice, bitwise equal."""
+    checked = 0
+    for n, audio_len in VARIANT_SHAPES:
+        padded, tn, frames = framed_input(dev, windows, n, audio_len)
+        f = n * tn
+        want = mel_cuda.mel_power_reference(frames)
+        for layout in mel_cuda.variants(f, sms):
+            before = mel_cuda.launches, mel_cuda.reduce_launches
+            run = lambda: mel_cuda._launch(  # noqa: E731
+                padded, padded.shape[1], tn, HOP, f, 48000, N_FFT, 128,
+                layout=layout)
+            got, again = run(), run()
+            torch.cuda.synchronize()
+            assert (mel_cuda.launches - before[0],
+                    mel_cuda.reduce_launches - before[1]) == (
+                        2, 2 * (layout[1] > 1)), layout
+            name = "F=%d %s" % (f, mel_cuda.describe(layout, f))
+            err = check_close(name, got, want, POWER_RTOL, POWER_ATOL)
+            assert torch.equal(got, again), name + ": repeat launch differs"
+            print("variant %s%s: max_abs_err=%r (rtol %g, atol %g), repeat "
+                  "bitwise equal" % (
+                      name, " [picked]" if layout == mel_cuda._layout(f, sms)
+                      else "", err, POWER_RTOL, POWER_ATOL))
+            checked += 1
+    return checked
+
+
+def kernel_vs_plain(dev, windows, sms):
     """Phase 3; returns the kernel's log-mel dB error against the plain path
     on the main path's 72 request windows."""
     frames = torch.from_numpy(
@@ -162,8 +238,9 @@ def kernel_vs_plain(dev, windows):
     err = check_close("mel_power F=70", got,
                       mel_cuda.mel_power_reference(frames), POWER_RTOL,
                       POWER_ATOL)
-    print("mel_power F=70 layout=%s max_abs_err=%r (rtol %g, atol %g)"
-          % (mel_cuda._layout(70, dev), err, POWER_RTOL, POWER_ATOL))
+    print("mel_power F=70 %s max_abs_err=%r (rtol %g, atol %g)"
+          % (mel_cuda.describe(mel_cuda._layout(70, sms), 70), err,
+             POWER_RTOL, POWER_ATOL))
 
     # The bars hold for zero-mean audio: the request windows less the ADC
     # midpoint, and random audio for the 1 s frontend shape. With the ADC's
@@ -171,14 +248,8 @@ def kernel_vs_plain(dev, windows):
     # power to the DC term's rounding (measured against float64 below).
     for n, audio_len in ((72, AUDIO_LEN), (300, AUDIO_LEN), (500, AUDIO_LEN),
                          (512, 48000)):
-        audio = (windows["contact"] - 2048.0 if audio_len == AUDIO_LEN else
-                 torch.from_numpy(np.random.RandomState(1).randn(
-                     n, audio_len).astype(np.float32) * 100).to(dev))
-        audio = audio.repeat(-(-n // len(audio)), 1)[:n].contiguous()
-        tn = mel.num_frames(audio_len, HOP)
-        padded = mel.reflect_pad(audio, N_FFT).contiguous()
+        padded, tn, frames = framed_input(dev, windows, n, audio_len)
         got = mel_cuda.mel_power_framed(padded, tn, HOP)
-        frames = padded.unfold(-1, N_FFT, HOP).reshape(-1, N_FFT)
         want = mel_cuda.mel_power_reference(frames)
         torch.cuda.synchronize()
         err = check_close("mel_power_framed F=%d" % (n * tn), got, want,
@@ -186,9 +257,10 @@ def kernel_vs_plain(dev, windows):
         truth = mel_power_f64(frames)
         rel = [((x.double() - truth).abs() / truth.abs().clamp(min=1e-30))
                .max().item() for x in (got, want)]
-        print("mel_power_framed F=%d layout=%s max_abs_err=%r (rtol %g, atol "
-              "%g); max rel err vs float64: kernel %r, plain %r"
-              % (n * tn, mel_cuda._layout(n * tn, dev), err, POWER_RTOL,
+        print("mel_power_framed F=%d %s max_abs_err=%r (rtol %g, atol %g); "
+              "max rel err vs float64: kernel %r, plain %r"
+              % (n * tn, mel_cuda.describe(mel_cuda._layout(n * tn, sms),
+                                           n * tn), err, POWER_RTOL,
                  POWER_ATOL, rel[0], rel[1]))
 
     centered = windows["contact"] - 2048.0
@@ -252,9 +324,9 @@ def main():
     dev = torch.device("cuda", 0)
     print(gpu_line())
     print(numeric.set_fp32_policy())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print(sys.version.split()[0], "torch", torch.__version__, "cuda",
-          torch.version.cuda, "sms",
-          torch.cuda.get_device_properties(dev).multi_processor_count)
+          torch.version.cuda, "sms", sms)
 
     t0 = time.perf_counter()
     mel_cuda.build()
@@ -266,7 +338,8 @@ def main():
 
     windows = request_windows(72, seed=0)
     win_dev = on(dev, windows)
-    db_err = kernel_vs_plain(dev, win_dev)
+    print("%d kernel variants checked" % variants_vs_plain(dev, win_dev, sms))
+    db_err = kernel_vs_plain(dev, win_dev, sms)
 
     # -- the full-width modality-5 classifier --------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -290,21 +363,29 @@ def main():
     requests = {n: {k: v[:n] for k, v in windows.items()} for n in sizes}
     raw = raw_poke(seed=1)
 
-    mel_cuda.launches = 0
+    def counted(call):
+        before = mel_cuda.launches, mel_cuda.reduce_launches
+        result = call()
+        return result, (mel_cuda.launches - before[0],
+                        mel_cuda.reduce_launches - before[1])
+
+    t_req = mel.num_frames(AUDIO_LEN, HOP)
+    mel_cuda.launches = mel_cuda.reduce_launches = 0
     per_request = {}
     for n in sizes:
-        before = mel_cuda.launches
-        names = served.classify_pokes(**requests[n])
-        per_request[n] = mel_cuda.launches - before
+        names, per_request[n] = counted(
+            lambda: served.classify_pokes(**requests[n]))
         assert len(names) == n and set(names) <= set(MATERIALS), names
-        assert per_request[n] > 0, "request of %d pokes skipped the kernel" % n
-    before = mel_cuda.launches
-    raw_name = served.classify_raw_poke(raw)
-    per_request["raw"] = mel_cuda.launches - before
-    assert raw_name in MATERIALS and per_request["raw"] > 0
-    launches = mel_cuda.launches
-    print("main path: launches per request %s, total %d; raw poke -> %s"
-          % (per_request, launches, raw_name))
+        # one DFT launch, and a bin-group sum where the layout splits bins
+        assert per_request[n] == (
+            1, int(mel_cuda._layout(n * t_req, sms)[1] > 1)), per_request
+    raw_name, per_request["raw"] = counted(
+        lambda: served.classify_raw_poke(raw))
+    assert raw_name in MATERIALS and per_request["raw"][0] > 0
+    launches, reduce_launches = mel_cuda.launches, mel_cuda.reduce_launches
+    print("main path: (DFT, bin-group sum) launches per request %s, total "
+          "%d and %d; raw poke -> %s" % (per_request, launches,
+                                         reduce_launches, raw_name))
 
     lip = lipschitz(served.disc)
     for n in sizes:
@@ -330,14 +411,19 @@ def main():
                   ROUNDING_ATOL))
 
     # -- times -----------------------------------------------------------------
-    for n in sizes:
-        ms = cuda_ms(lambda: served.classify_pokes(**requests[n]))
-        print("request %d pokes: %.4f ms (median of %d)" % (n, ms, RUNS))
-    print("raw poke: %.4f ms (median of %d)"
-          % (cuda_ms(lambda: served.classify_raw_poke(raw)), RUNS))
+    calls = [("request %d pokes" % n,
+              lambda n=n: served.classify_pokes(**requests[n])) for n in sizes]
+    calls.append(("raw poke", lambda: served.classify_raw_poke(raw)))
+    for name, call in calls:
+        ms, busy = cuda_ms(call), device_ms(call)
+        print("%s: %.4f ms (median of %d); device busy %s%s" % (
+            name, ms, RUNS, fmt_ms(busy),
+            "" if busy is None else " (%.1f%% of the request)"
+            % (100 * busy / ms)))
 
     timing = {}
-    for n, audio_len in ((72, AUDIO_LEN), (512, 48000)):
+    for n, audio_len in ((1, AUDIO_LEN), (6, AUDIO_LEN), (72, AUDIO_LEN),
+                         (512, 48000)):
         audio = torch.from_numpy(np.random.RandomState(2).randn(
             n, audio_len).astype(np.float32) * 100).to(dev)
         t = mel.num_frames(audio_len, HOP)
@@ -356,12 +442,19 @@ def main():
         f = n * t
         timing[f] = (statistics.median(kernel_ms), statistics.median(plain_ms))
         gflop = 2 * 2 * N_FFT * (N_FFT // 2 + 1) * f / 1e9
-        print("mel_power F=%d layout=%s: kernel %.4f ms (%.1f TFLOP/s), plain "
+        print("mel_power F=%d %s: kernel %.4f ms (%.1f TFLOP/s), plain "
               "%.4f ms; runs %s / %s" % (
-                  f, mel_cuda._layout(f, dev), timing[f][0],
+                  f, mel_cuda.describe(mel_cuda._layout(f, sms), f),
+                  timing[f][0],
                   gflop / timing[f][0], timing[f][1],
                   ["%.4f" % v for v in kernel_ms],
                   ["%.4f" % v for v in plain_ms]))
+        print("mel_power F=%d device time: kernel %s (row centers, DFT "
+              "kernel, bin-group sum), plain %s" % (
+                  f, fmt_ms(device_ms(
+                      lambda: mel_cuda.mel_power_framed(padded, t, HOP))),
+                  fmt_ms(device_ms(
+                      lambda: mel_cuda.mel_power_reference(frames)))))
     f_main = 72 * mel.num_frames(AUDIO_LEN, HOP)
 
     print(gpu_line())
