@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's serving path once on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths once on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py        # from the repository root, one CUDA device
 
@@ -24,12 +25,34 @@ Phases (any failure raises and the script exits non-zero):
    time of the same calls from ``torch.profiler`` (the sum of their
    kernels' durations), which leaves out host time and gives each
    request's device-busy share.
+6. The training set through the kernel: ``load_features`` at modality 5 on
+   the synthetic set of seed 0, 100 pokes per object (7,200 x 3,632), one
+   kernel launch per object (72); the log-mel block held to a plain-path
+   build of the same audio under phase 3's rule; wall and device time.
+7. The entry point: ``gan_main`` for Table 1 at modality 5, 2 epochs,
+   ``--strict``, on the card; 7 cells of 6 fold lines and an average each.
+8. One full cell: 100 epochs, 100 % labels, seed 0, 6 folds, on phase 6's
+   dataset, held to the JAX package's recorded result
+   (``artifacts/t1_sweep.jsonl``) at the repo's DP-parity bars: worst
+   per-fold |delta| <= 0.04, |mean delta| <= 1.5 points.
+9. ``fit_classifier`` on 600 rows at 2 epochs, save -> load, a request of
+   6 pokes through ``classify_pokes``.
+10. Training times: updates/s (``bench.py``'s definition) over phase 8's
+    wall time; the median step time from CUDA events; device time per step,
+    device-busy share, the ten device operations that take the most time
+    and kernel launches per step, from ``torch.profiler`` over 50 steps.
+
+The kernel counts are set to 0 just before each path is driven (phase 4,
+then phases 6-7, then phase 9's request) and read just after; the JSON
+line's ``launches`` is their sum.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA
 device.
 """
 
+import contextlib
+import io
 import json
 import statistics
 import subprocess
@@ -41,11 +64,14 @@ import numpy as np
 import torch
 
 from mrgan_tpu_torch import MATERIALS
+from mrgan_tpu_torch.cli import tables
+from mrgan_tpu_torch.data import mreo
 from mrgan_tpu_torch.models import nets
 from mrgan_tpu_torch.ops import features, mel, mel_cuda
-from mrgan_tpu_torch.serve import MaterialClassifier
-from mrgan_tpu_torch.train import gan
+from mrgan_tpu_torch.serve import MaterialClassifier, fit_classifier
+from mrgan_tpu_torch.train import gan, protocol
 from mrgan_tpu_torch.utils import device as numeric
+from mrgan_tpu_torch.utils import rng as rng_util
 
 ROOT = Path(__file__).resolve().parent
 FIXDIR = ROOT / "tests" / "golden" / "fixtures"
@@ -60,6 +86,9 @@ DB_ATOL = 0.02                        # tests/test_mel_pallas.py:31
 GOLDEN_DB_ATOL = 7e-3                 # tests/test_mel.py:115
 ROUNDING_ATOL = 1e-4                  # fp32 matmul rounding in the logits
 RUNS, WARMUP = 20, 3
+REFERENCE = ROOT / "artifacts" / "t1_sweep.jsonl"
+FOLD_DELTA, MEAN_DELTA = 0.04, 0.015  # STATUS.md:29, tools/dp_parity.py
+PROFILE_STEPS = 50
 
 
 def gpu_line():
@@ -317,6 +346,218 @@ def lipschitz(disc):
     return bound
 
 
+# -- the training path ---------------------------------------------------------
+
+def training_set(dev, pokes=100):
+    """Phase 6: the modality-5 training set built on the card, the kernel
+    making its log-mel block, held to the plain path under phase 3's rule.
+    Returns (X, y) on the card."""
+    kw = dict(modalities=5, synthetic_seed=0,
+              synthetic_kwargs={"pokes_per_object": pokes})
+    before = mel_cuda.launches
+    t0 = time.perf_counter()
+    x, y = mreo.load_features(device=dev, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_obj = len(MATERIALS) * 12
+    assert mel_cuda.launches - before == n_obj, mel_cuda.launches - before
+    n_trace = 3 * FT_LEN
+    t = mel.num_frames(AUDIO_LEN, HOP)
+    assert x.shape == (n_obj * pokes, n_trace + 128 * t) and x.device == dev, (
+        x.shape, x.device)
+    assert torch.isfinite(x).all()
+
+    # the same audio (the loader's memo) through the plain path and float64
+    synth = mreo._generate_processed_memo(
+        seed=0, forcetemp_time=4, contactmic_time=C_TIME,
+        pokes_per_object=pokes)
+    contact = torch.cat([torch.from_numpy(obj["contact"]) for m in MATERIALS
+                         for obj in synth[m].values()]).to(dev)
+    plain, truth = [], []
+    for rows in contact.split(pokes):
+        plain.append(mel.logmel(rows))
+        frames = mel._frame(rows, N_FFT, HOP).reshape(-1, N_FFT)
+        truth.append(mel.db_scale(mel_power_f64(frames).reshape(-1, t, 128)))
+    plain, truth = torch.cat(plain), torch.cat(truth)
+    got = x[:, n_trace:]
+    db_err = (got - plain).abs().max().item()
+    k_err = (got.double() - truth).abs().max().item()
+    p_err = (plain.double() - truth).abs().max().item()
+    print("phase 6: load_features modality 5, %d pokes: X %s on %s, %d kernel "
+          "launches (one per object, F=%d each), wall %.3f s; log-mel block "
+          "kernel vs plain max_abs_err_db=%r; vs float64: kernel %r dB, "
+          "plain %r dB" % (len(x), tuple(x.shape), x.device,
+                            mel_cuda.launches - before, pokes * t, wall,
+                            db_err, k_err, p_err))
+    assert db_err <= DB_ATOL or k_err <= 2 * p_err, (db_err, k_err, p_err)
+    return x, y, synth, contact
+
+
+def training_kernel_times(contact, pokes=100):
+    """Device time of the kernel at the training path's shape (one object,
+    F = 1,900) against the plain path, and of the 72 objects' log-mel.
+    Run after the path's counts are read: these launches do not count."""
+    t = mel.num_frames(AUDIO_LEN, HOP)
+    padded = mel.reflect_pad(contact[:pokes], N_FFT).contiguous()
+    frames = padded.unfold(-1, N_FFT, HOP).reshape(-1, N_FFT)
+    print("phase 6 times: kernel device time %s per object (F=%d), plain %s; "
+          "%s for the log-mel of the %d objects" % (
+              fmt_ms(device_ms(lambda: mel_cuda.mel_power_framed(
+                  padded, t, HOP))), pokes * t,
+              fmt_ms(device_ms(lambda: mel_cuda.mel_power_reference(frames))),
+              fmt_ms(device_ms(lambda: [mel_cuda.logmel(rows) for rows in
+                                        contact.split(pokes)], runs=1)),
+              len(contact) // pokes))
+
+
+def entry_point(dev_name, epochs=2, pokes=100):
+    """Phase 7: Table 1 through ``gan_main`` at modality 5, on the card."""
+    argv = ["--tables", "1", "--synthetic", "--seed", "0", "--modalities",
+            "5", "--epochs", str(epochs), "--strict", "--device", dev_name,
+            "--synthetic-pokes", str(pokes)]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        tables.gan_main(argv)
+    wall = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    print("\n".join(lines))
+    subheads = [l for l in lines if "Percentage of training data" in l]
+    folds = [l for l in lines if l.startswith("Test error:")]
+    averages = [l for l in lines if l.startswith("Average error:")]
+    assert len(subheads) == len(averages) == 7 and len(folds) == 42, (
+        len(subheads), len(folds), len(averages))
+    assert "Force, Temperature, and Contact Mic modality" in lines[3], lines[3]
+    errs = [float(l.split()[2]) for l in folds]
+    assert all(0.0 <= e <= 1.0 for e in errs), errs
+    print("phase 7: gan_main %s: 7 cells x 6 folds, wall %.3f s"
+          % (" ".join(argv), wall))
+
+
+def reference_errors():
+    for line in REFERENCE.read_text().splitlines():
+        rec = json.loads(line) if line.strip() else {}
+        if rec.get("cell", {}) == {"model": "gan", "table": 1, "modality": 5,
+                                    "percent": 100}:
+            return np.asarray(rec["result"])
+    raise KeyError("no modality-5, 100 %% cell in %s" % REFERENCE)
+
+
+def full_cell(ds, epochs=100):
+    """Phase 8: the 100-epoch, 100 %-label, seed-0 cell against the JAX
+    package's recorded result. Returns (errors, wall seconds, updates)."""
+    cfg = gan.GanConfig(epochs=epochs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    errs = protocol.run_gan_cell(ds, percentlabeled=100, cfg=cfg, seed=0)
+    wall = time.perf_counter() - t0
+    n_train = len(ds) - len(ds) // 6
+    updates = 6 * epochs * (n_train // cfg.batch_size)
+    want = reference_errors()
+    delta = errs - want
+    print("phase 8: modality 5, 100 %% labels, %d epochs, seed 0: port %s, "
+          "JAX package (%s) %s; mean %.4f vs %.4f, worst |delta| %.4f (bar "
+          "%g), |mean delta| %.2f points (bar %.1f); wall %.3f s" % (
+              epochs, np.round(errs, 4).tolist(), REFERENCE.relative_to(ROOT),
+              np.round(want, 4).tolist(), errs.mean(), want.mean(),
+              np.abs(delta).max(), FOLD_DELTA, 100 * abs(delta.mean()),
+              100 * MEAN_DELTA, wall))
+    assert np.isfinite(errs).all() and errs.shape == (6,)
+    assert np.abs(delta).max() <= FOLD_DELTA, delta
+    assert abs(delta.mean()) <= MEAN_DELTA, delta
+    return errs, wall, updates
+
+
+def fitted_classifier(dev, x, y, synth):
+    """Phase 9: fit_classifier -> save -> load -> classify_pokes on the card.
+    Returns the (DFT, bin-group sum) launches of the request."""
+    rows = torch.arange(0, len(x), 12, device=dev)
+    clf = fit_classifier(x[rows], y[rows], modality=5,
+                         cfg=gan.GanConfig(epochs=2), seed=0, ft_time=FT_TIME,
+                         c_time=C_TIME, device=dev)
+    path = clf.save(str(OUT_DIR / "clf_fit"))
+    served = MaterialClassifier.load(path, device=dev)
+    pokes = {k: np.stack([synth[m]["%s_obj0" % m][k][0] for m in MATERIALS])
+             for k in ("temperature", "force0", "force1", "contact")}
+    mel_cuda.launches = mel_cuda.reduce_launches = 0
+    names = served.classify_pokes(**pokes)
+    counted = mel_cuda.launches, mel_cuda.reduce_launches
+    assert len(names) == 6 and set(names) <= set(MATERIALS), names
+    assert counted[0] == 1, counted
+    print("phase 9: fit_classifier on %d rows, 2 epochs, saved to %s and "
+          "reloaded; 6 pokes (one per material %s) -> %s; %d kernel launch"
+          % (len(rows), Path(path).relative_to(ROOT), list(MATERIALS), names,
+             counted[0]))
+    return counted
+
+
+def step_times(ds, cell):
+    """Phase 10: updates/s of phase 8, then the step alone: CUDA-event
+    median, and device time, busy share, top operations and launches per
+    step from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    errs, wall, updates = cell
+    print("phase 10: %d updates (6 folds x epochs x 120 batches) in %.3f s: "
+          "%.1f updates/s (phase 7 ran the same path first, as a warm-up)"
+          % (updates, wall, updates / wall))
+    cfg = gan.GanConfig()
+    rng = np.random.RandomState(0)
+    splits = protocol.stratified_splits(ds.y_host, 6, seed=0)
+    idx = [protocol.fold_indices(ds.y_host, tr, te, 100, None, 6, rng)
+           for tr, te in splits]
+    lab, pool, train, test = (torch.as_tensor(np.stack([f[i] for f in idx])
+                                              .astype(np.int64), device=ds.X.device)
+                              for i in range(4))
+    data = gan.scale_folds(ds.X, ds.y, lab, pool, train, test)
+    generator = rng_util.make_generator(0, ds.X.device)
+    state = gan.init_state(gan.init_params(generator, ds.X.shape[1], cfg, 6),
+                           cfg)
+    li, ui, u2i = gan.epoch_schedule(generator, 6, lab.shape[1],
+                                     pool.shape[1], train.shape[1],
+                                     cfg.batch_size)
+    nb = li.shape[1]
+
+    def step(b):
+        nonlocal state
+        rand = gan.draw_step(generator, 6, cfg.batch_size, ds.X.shape[1], cfg)
+        state, _ = gan.train_step(state, data, li[:, b % nb], ui[:, b % nb],
+                                  u2i[:, b % nb], rand, cfg=cfg)
+
+    for b in range(10):
+        step(b)
+    times = []
+    for b in range(60):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(b)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    step_ms = statistics.median(times)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for b in range(PROFILE_STEPS):
+            step(b)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages()
+           if getattr(e, "device_time_total", 0) > 0]
+    busy = sum(e.device_time_total for e in ops) / 1e3 / PROFILE_STEPS
+    kernels = sum(e.count for e in ops) / PROFILE_STEPS
+    print("phase 10: step (6 folds, batch 50, D=%d): median %.4f ms of %d "
+          "(CUDA events, one step's draws included; %.1f updates/s); device "
+          "time %s per step over %d steps (torch.profiler): device busy "
+          "%.1f%% of the step; %.1f device operations per step" % (
+              ds.X.shape[1], step_ms, len(times), 6e3 / step_ms, fmt_ms(busy),
+              PROFILE_STEPS, 100 * busy / step_ms, kernels))
+    print("phase 10: top device operations per step:")
+    for e in sorted(ops, key=lambda e: -e.device_time_total)[:10]:
+        print("  %8.4f ms  %5.1f/step  %s" % (
+            e.device_time_total / 1e3 / PROFILE_STEPS,
+            e.count / PROFILE_STEPS, e.key[:110]))
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; "
@@ -457,13 +698,35 @@ def main():
                       lambda: mel_cuda.mel_power_reference(frames)))))
     f_main = 72 * mel.num_frames(AUDIO_LEN, HOP)
 
+    # -- the training path -------------------------------------------------------
+    phase_t0 = time.perf_counter()
+    mel_cuda.launches = mel_cuda.reduce_launches = 0
+    x, y, synth, contact = training_set(dev)
+    ds = protocol.DeviceDataset(x, y, device=dev)
+    t_phase = {"6": time.perf_counter() - phase_t0}
+    entry_point("cuda")
+    train_launches = mel_cuda.launches
+    t_phase["7"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
+    print("training path: %d DFT kernel launches, %d bin-group sums (phases "
+          "6 and 7)" % (train_launches, mel_cuda.reduce_launches))
+    assert train_launches == 2 * 72, train_launches
+    cell = full_cell(ds)
+    t_phase["8"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
+    fit_launches = fitted_classifier(dev, x, y, synth)[0]
+    t_phase["9"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
+    training_kernel_times(contact)
+    step_times(ds, cell)
+    t_phase["10"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
+    print("phase wall times: %s s" % ", ".join(
+        "%s %.1f" % kv for kv in t_phase.items()))
+
     print(gpu_line())
     print(json.dumps({"kernels": [{
         "name": "mel_power",
         "route": "cuda",
         "source": "mrgan_tpu_torch/csrc/mel_power.cu",
         "replaces": "mrgan_tpu/ops/mel_pallas.py:79",
-        "launches": launches,
+        "launches": launches + train_launches + fit_launches,
         "max_abs_err": db_err,
         "ms": timing[f_main][0],
         "plain_ms": timing[f_main][1],

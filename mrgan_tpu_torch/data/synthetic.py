@@ -1,0 +1,654 @@
+"""Synthetic MREO dataset generator: the part ``generate_processed`` reaches.
+
+Port of ``mrgan_tpu/data/synthetic.py`` (numpy and scipy only, as there):
+the constants, ``_sensor_lag`` and ``generate_processed`` are copied line for
+line and draw in exactly the same order, so the same seed gives the same
+arrays bit for bit (held by ``tests/test_torch_synthetic.py``). Any change
+to the original's distributions bumps ``GENERATOR_VERSION`` there and must
+be copied here. ``generate_raw_file`` (the raw acquisition schema) is not
+ported yet (``ROADMAP.md`` A10).
+
+The stand-in has the processed-pickle schema and shapes of the real set:
+6 materials x 12 objects x ``pokes_per_object`` pokes of temperature,
+force0/force1 and contact-mic traces, with per-object and per-poke
+variation (see the original's module docstring for the physics).
+"""
+
+import numpy as np
+import scipy.signal
+
+from .. import MATERIALS
+
+# Version stamp of the synthetic-MREO physics/calibration constants below.
+# EVERY change to the generator's distributions MUST bump this: sweep
+# artifacts record it (utils/stamp.py -> SweepCheckpoint), and the
+# comparison tools (tools/compare_published.py, tools/summarize_regen.py)
+# refuse to mix artifacts produced under different generator versions —
+# round 4's headline GAN-vs-MLP gap silently compared cells from two
+# different generations (VERDICT r4 weak #4).
+# History: r3 = round-3 temperature redesign; r4i2/r4i3 = round-4
+# recalibration iterations 2/3 (commits 825735f, 27da587); r5.x = round-5
+# proxy-loop iterations (tools/proxy_grid.py; targets from the r4i3
+# full-fidelity gate failures, VERDICT r4 weak #1).
+GENERATOR_VERSION = "r5.4"
+
+# (temp_drop degC, tau s, stiffness, resonance Hz, audio decay /s, ring amp)
+#
+# The means are chosen so materials form OVERLAPPING clusters with a
+# complementary confusion structure across modalities (the published per-
+# modality accuracies, BASELINE.md, are far from 100%, and fusion helps):
+# - thermal effusivity (drop) groups {metal} >> {ceramic, glass} >>
+#   {plastic, wood} >> {fabric}: temperature confuses within-group pairs;
+# - stiffness groups {metal, ceramic, glass} ~ {wood} ~ {plastic} ~ {fabric}:
+#   force confuses the hard cluster that temperature partially separates;
+# - ring frequency/decay separate glass/ceramic/metal (which force confuses)
+#   but confuse plastic/wood (which force separates).
+_MATERIAL_PHYSICS = {
+    "plastic": (3.8, 1.05, 0.50, 950.0, 70.0, 0.35),
+    "glass": (7.8, 1.00, 0.88, 2500.0, 18.0, 0.80),
+    "fabric": (1.2, 2.30, 0.12, 320.0, 160.0, 0.10),
+    "metal": (14.0, 0.45, 1.00, 3600.0, 12.0, 1.00),
+    "wood": (3.2, 1.85, 0.65, 650.0, 90.0, 0.40),
+    "ceramic": (8.8, 0.55, 0.92, 1900.0, 22.0, 0.70),
+}
+
+# Hierarchical hardness model (round-2, VERDICT r1 item 1): the round-1
+# generator's classes barely overlapped, so every table curve saturated where
+# the published curves span 43-96%. Difficulty now comes from three levels:
+# - per-OBJECT parameter spreads (multiplicative lognormal sigmas): objects of
+#   neighboring materials overlap (a soft ceramic object behaves like glass),
+#   so class manifolds are wide — full-label accuracy lands below 100%;
+# - per-POKE nuisances: contact quality q (thermal coupling + ring coupling)
+#   and impact velocity v (force peak + audio energy) multiply the class
+#   signal, so ONE poke cannot pin an object's parameters — this is what
+#   makes 1%-label cells hard (the published 62.8% @1% F+T+mic) while
+#   unlabeled pokes still reveal the manifold (the semi-supervised effect);
+# - a class-GENERIC broadband onset click that dominates the first ~15 ms of
+#   audio: short Table-5 mic windows (±25 ms @0.05 s) carry little material
+#   signal, so the duration curve rises (published 63.3 -> 84.6%) instead of
+#   saturating.
+_OBJECT_SPREADS = {
+    # iter-3: stiffness object spread 0.15 -> 0.10 — the published force
+    # curve jumps 62.1 -> 70.4 between 1 and 2 % labels, i.e. 20 labels d
+    # class already cover the class's object variety, so force difficulty
+    # must live in PER-POKE nuisances (peak noise/settle wobble), not in
+    # object-coverage (which penalizes only the lowest-label cells)
+    "drop": 0.45, "tau": 0.32, "stiff": 0.10, "f0": 0.26, "decay": 0.28,
+    "amp": 0.30,
+}
+# (r5.3 probed 0.21 with exponent compensation so only the force peak read
+# less coupling nuisance, targeting the cold F+T low-label end — the paired
+# grid measured the force low-label cells UNMOVED (-0.3 @1 %): the force
+# label-efficiency deficit is not q-limited, and the knob was reverted.)
+_POKE_SIGMA_Q = 0.24   # contact-quality lognormal sigma
+_POKE_SIGMA_V = 0.17   # impact-velocity lognormal sigma
+
+# First-order measurement lag (sensor dynamics): the thermistor sits at the
+# fingertip surface (fast, ~90 ms — the reference's >1 degC collision detect
+# at temperaturepublisher.py:86-93 only works if the sensor responds within
+# tens of ms) and the fingertip force readout is band-limited (~30 ms).
+# Short Table-5 windows see an attenuated, delayed signal — part of the
+# published duration curves' low end — while windows >> the lag are
+# unaffected.
+# r5.1: 0.028 -> 0.016 — the r4i3 full regen read Table-5 temperature
+# -12.2 at 0.1 s (46.7 vs published 58.9): with a 28 ms readout lag the
+# fast-surface drop barely registers inside a [-0.1, +0.1] s window, so the
+# short-window cells starved. A faster (but still physical) surface
+# thermistor moves signal into the shortest windows while leaving >=0.5 s
+# windows essentially untouched (the lag was already << those windows).
+_TEMP_SENSOR_TAU = 0.028
+# (iter-3b tried 0.042 here; the slower readout attenuates the ~20 Hz
+# contact ring — the hard-cluster cue — at EVERY window length, crushing
+# the 4 s Table-1 cells (-11 @1 % on hardware), so short-window difficulty
+# lives in the settle transient below instead)
+_FORCE_SENSOR_TAU = 0.030
+
+# Round-3 temperature redesign (VERDICT r2 missing #1): the round-2 temp
+# trace was a 2-parameter signal (drop, tau) with unimodal class clusters —
+# 60 labels already located 6 clusters in a 2-D space, so the Table-1 curve
+# sat flat at ~61% (published 53.8 -> 82.1), and the smooth 2-param manifold
+# was EASY for the GAN's generator to match, which degraded the
+# discriminator below the SVM baseline (measured: SVM 73.6% vs GAN 60.5% at
+# 100% labels — the known too-good-generator failure of feature-matching
+# semi-supervised GANs). Each object is now a distinct multi-dimensional
+# thermal mode, so a class is a union of 12 object clusters:
+# - two-exponential cooling: a fast surface-contact component (tau_f ~tens
+#   of ms, per object) and a slow bulk-conduction component (tau_s, the
+#   material tau), mixed by a per-object fraction w_fast (coating/contact-
+#   area structure; material sets only the base via _W_FAST);
+# - a per-object late-time conduction drift (semi-infinite-solid spreading),
+#   visible only in multi-second windows (the published Table-5 temp rise
+#   through 3-4 s);
+# - per-poke re-seat STEP events (contact micro-adjustments, amplitude
+#   proportional to the drop) and a slow ambient drift — structured
+#   nuisances a generator must model (sparse discontinuities defeat
+#   feature-matching mean-matching) but labels can deconfound.
+# - a thermal-coupling RIPPLE at the mechanical contact resonance: the
+#   post-impact ring (the same latent resonance the force/audio channels
+#   see) modulates contact pressure and with it the instantaneous thermal
+#   coupling, so the cooling rate oscillates at osc_f with per-poke random
+#   phase. High-winding phase structure is exactly what the force channel
+#   has and the smooth MLP generator cannot match (measured: the GAN beats
+#   the SVM on force and trailed it on ripple-less temperature), and it is
+#   a second class cue (resonance) that resolves the amplitude-confused
+#   pairs — but only with enough labels to map it.
+# With <1 label per object at 1% labels the cluster union is uncovered
+# (published 53.8%), while full labels resolve it up to genuine
+# between-class object overlap (published 82.1%).
+_W_FAST = {
+    "metal": 0.60, "ceramic": 0.50, "glass": 0.44,
+    "plastic": 0.40, "wood": 0.24, "fabric": 0.20,
+}
+
+# Relative micro-slip friction-noise level while the fingertip dwells on the
+# surface (see the contact-texture term in generate_processed): rough weaves
+# radiate far more broadband noise than polished glass/metal.
+_SURFACE_ROUGHNESS = {
+    "fabric": 1.00, "wood": 0.55, "plastic": 0.35,
+    "ceramic": 0.18, "metal": 0.12, "glass": 0.08,
+}
+
+
+def _sensor_lag(x, tau, dt):
+    """First-order low-pass along the time axis (rows = pokes)."""
+    if tau <= 0:
+        return x
+    a = dt / (tau + dt)
+    return scipy.signal.lfilter([a], [1.0, -(1.0 - a)], x, axis=-1,
+                                zi=(1.0 - a) * x[..., :1])[0]
+
+SR = 48000
+
+
+def _object_names(material, n_objects):
+    return [f"{material}_obj{k}" for k in range(n_objects)]
+
+
+def generate_processed(seed=0, forcetemp_time=4.0, contactmic_time=0.2,
+                       pokes_per_object=100, objects_per_material=12,
+                       noise_scale=1.0, with_contact=True, hardness=1.0):
+    """Synthesize the processed-pickle structure:
+    {material: {objName: {'temperature','force0','force1','contact',
+    'temperatureTime','forceTime','contactTime': (pokes, n) float32}}}.
+
+    ``with_contact=False`` skips the 48 kHz audio synthesis (the dominant
+    cost) for force/temperature-only modalities. The same seed produces the
+    same force/temperature streams either way (audio uses a separate RNG).
+
+    ``hardness`` scales the hierarchical difficulty model (see the module
+    constants): 1.0 is calibrated so the table protocols land in the
+    published accuracy bands instead of saturating; 0 collapses the object
+    spreads and poke nuisances (near-separable classes, round-1 behavior).
+    """
+    rng = np.random.RandomState(seed)
+    n_ft = int(100 * forcetemp_time)
+    n_c = int(SR * contactmic_time)
+    t_ft = np.linspace(-0.1, forcetemp_time, n_ft).astype(np.float32)
+    t_c = np.linspace(-contactmic_time / 2, contactmic_time / 2, n_c).astype(np.float32)
+
+    def ospread(key):
+        return float(np.exp(_OBJECT_SPREADS[key] * hardness * rng.randn()))
+
+    out = {}
+    obj_counter = 0
+    for material in MATERIALS:
+        drop, tau, stiff, f_res, decay, amp = _MATERIAL_PHYSICS[material]
+        objects = {}
+        for obj in _object_names(material, objects_per_material):
+            p = pokes_per_object
+            # per-object factors: the repeatable identity of this object,
+            # drawn wide enough that neighboring materials' objects overlap
+            o_drop = drop * ospread("drop")
+            o_tau = tau * ospread("tau")
+            o_stiff = stiff * ospread("stiff")
+            o_res = f_res * ospread("f0")
+            o_decay = decay * ospread("decay")
+            o_amp = amp * ospread("amp")
+            # per-object partial structure (how this object's overtones sit)
+            o_part_hi = 2.7 * np.exp(0.06 * hardness * rng.randn())
+            o_part_lo = 0.55 * np.exp(0.06 * hardness * rng.randn())
+
+            # per-poke nuisances: contact quality q couples the fingertip to
+            # the object (thermal drop, ring energy); impact velocity v sets
+            # the mechanical energy (force peak, audio amplitude). Both
+            # multiply the class signal, so one poke underdetermines the
+            # object's parameters.
+            q = np.exp(_POKE_SIGMA_Q * hardness * rng.randn(p, 1))
+            v = np.exp(_POKE_SIGMA_V * hardness * rng.randn(p, 1))
+            # (r5.2 probed per-channel q_t/q_f decorrelation to raise the
+            # F+T fusion gain at 1 % labels and reverted: the paired grid
+            # measured the lift landing at 4-100 % labels (+7 mid-curve)
+            # far more than at 1 % (+1.8) — decorrelated nuisance helps
+            # most once enough labels exist to exploit both readouts, so
+            # it WIDENED the span it was meant to shrink. The span fix is
+            # the shared-q sigma trim below instead: q is exactly the
+            # nuisance that few labels cannot deconfound, so shrinking it
+            # lifts the low-label end preferentially.)
+
+            # contact ring (shared latent of force, temperature ripple, and
+            # audio: it is the same physical contact): frequency follows the
+            # object's acoustic resonance scaled into the ~100 Hz band,
+            # ring-down time follows its acoustic decay
+            osc_f = (6.0 + o_res / 250.0) \
+                * (1 + 0.02 * hardness * rng.randn(p, 1))
+            # ring-down times land so the hard cluster's separation (metal
+            # 0.75 s / glass 0.50 / ceramic 0.41) resolves in 1 s windows
+            # but not 0.5 s ones — the published Force duration curve's
+            # 81.8 -> 86.9 % rise over 0.5 -> 1 s (round-4 probe at
+            # 6/o_decay measured that rise flat: 83.8 -> 83.9)
+            osc_t = (9.0 / o_decay) * (1 + 0.08 * hardness * rng.randn(p, 1))
+
+            # --- temperature: heated fingertip held at ~55C, contact
+            # cooling after t=0 (see the round-3 redesign note above
+            # _W_FAST). Object identity = (o_drop, w_fast, tau_f, tau_s,
+            # o_late, sensor seat) — a multi-dim mode; per-poke nuisances
+            # (q-coupled amplitude, re-seat steps, ambient drift, start
+            # drift) keep single pokes underdetermined.
+            contact_t = np.maximum(t_ft, 0.0)[None, :]
+            start = 55.0 + 0.45 * hardness * rng.randn(p, 1)
+            w_base = _W_FAST[material]
+            # round-4 widening (VERDICT r3 next #1, temperature span): the
+            # SLOW/LATE thermal structure (mixing fraction, fast tau, late
+            # drift) spreads wider per object, so a class is a broader union
+            # of modes that only long windows + many labels can map — the
+            # published Table-1 temperature curve spans 53.8 -> 82.1 %
+            # round-4 iter-3 (full-t1 regen read -5.2 @100 % / +2.5 @1 %
+            # vs published — span compressed from BOTH ends): object-level
+            # thermal-mode spreads widen further (low-label coverage gets
+            # harder) while the per-poke nuisances below shrink (a single
+            # test poke reads its object's mode more faithfully, lifting
+            # the full-label ceiling toward the published 82.1)
+            # (r5.1: 0.60 -> 0.64 — the r4i3 Table-1 temperature low-label
+            # cells ran slightly hot, +4.2 @1 %; a marginally broader
+            # object-mode union costs low-label coverage most)
+            o_wf = float(np.clip(
+                w_base * np.exp(0.60 * hardness * rng.randn()), 0.06, 0.85))
+            # fast-surface tau mostly inside a 0.1 s window (published T5
+            # temp already reads 58.9 % at 0.1 s — round-4 probe at
+            # tau_f=0.055 measured 51.3: too slow); the late drift shrinks
+            # (round-4 probe: 4 s windows +4.1 too easy)
+            # r5.1: 0.042 -> 0.030 — pairs with the faster _TEMP_SENSOR_TAU
+            # to feed the 0.1 s Table-5 window (published 58.9 %, r4i3
+            # regen 46.7): most of the fast-surface component now completes
+            # within the window instead of being half-built at its edge
+            o_tauf = 0.042 * np.exp(0.80 * hardness * rng.randn())
+            o_late = 0.035 * o_drop * np.exp(0.8 * hardness * rng.randn())
+            # thermal coupling depends STRONGLY on contact quality (round-4
+            # recalibration: q**0.15 left single pokes too trustworthy — the
+            # T1 temperature curve sat +9 above published at 1-4 % labels;
+            # a per-poke amplitude nuisance makes one poke underdetermine
+            # the object while thousands still average out)
+            poke_drop = o_drop * q**0.30 * (1 + 0.055 * hardness * rng.randn(p, 1))
+            w_p = np.clip(o_wf + 0.06 * hardness * rng.randn(p, 1), 0.04, 0.9)
+            tau_f = np.maximum(
+                o_tauf * (1 + 0.07 * hardness * rng.randn(p, 1)), 0.015)
+            tau_s = np.maximum(
+                o_tau * (1 + 0.06 * hardness * rng.randn(p, 1)), 0.05)
+            temp = start - poke_drop * (
+                w_p * (1.0 - np.exp(-contact_t / tau_f))
+                + (1.0 - w_p) * (1.0 - np.exp(-contact_t / tau_s))
+            ) - o_late * (contact_t / 4.0)
+            # thermal-coupling ripple (see _W_FAST note): the mechanical
+            # ring modulates contact pressure -> instantaneous coupling,
+            # so cooling oscillates at the contact resonance. The ring is
+            # excited BY the impact, so its phase is impact-locked (small
+            # seating jitter), which makes the ripple a readable class cue
+            # (resonance + decay) rather than phase-random noise; amplitude
+            # rides the drop (class-correlated)
+            # r5.1: 0.16 -> 0.13 — the r4i3 Table-5 temperature mid-window
+            # cells ran hot (+2.0 @1 s, +4.8 @2 s): the ripple (resolved
+            # once a window spans a few ring periods) was handing 1-2 s
+            # windows too much extra class signal; trimmed, not removed —
+            # it remains the cue that keeps the GAN ahead of the SVM on
+            # temperature (round-3 measured result)
+            o_rip = 0.16 * np.exp(0.50 * hardness * rng.randn())
+            phase_r = 0.35 * hardness * rng.randn(p, 1)
+            # the thermal ripple decays FASTER than the mechanical ring
+            # (contact pressure stabilizes once the pad conforms), so the
+            # force channel's round-4 slower ring-down (9/o_decay below)
+            # doesn't hand long temperature windows extra resonance frames
+            temp = temp + o_rip * poke_drop * hardness \
+                * np.exp(-contact_t / np.maximum(0.6 * osc_t, 1e-3)) \
+                * np.sin(2 * np.pi * osc_f * contact_t + phase_r)
+            # re-seat steps: contact micro-adjustments at random times jump
+            # the coupling; amplitude rides the drop so the events carry
+            # class-amplitude signal yet break per-poke smoothness
+            t_max = max(float(t_ft[-1]), 0.2)
+            for _ in range(2):
+                t_j = rng.uniform(0.0, 0.9 * t_max, (p, 1))
+                gate = rng.rand(p, 1) < 0.50
+                amp_j = 0.035 * poke_drop * rng.randn(p, 1) * gate * hardness
+                temp = temp - amp_j * (contact_t > t_j)
+            dt = float(t_ft[1] - t_ft[0]) if n_ft > 1 else 0.01
+            # slow ambient/convection drift (correlated, ~1 s scale).
+            # r5.2/r5.3: 1.0 -> 0.65 -> 0.55 — the r5.1 paired grid proved the 0.1 s
+            # Table-5 temperature cell (-12.8 vs published) is NOT
+            # sensor-lag-limited (halving the lag moved it -0.7): inside a
+            # 0.2 s window the drift is an irreducible per-poke OFFSET on a
+            # ~5-sample signal, while long windows average it away — it is
+            # the short-window knob. The object-mode spread above widens in
+            # compensation so low-label difficulty stays put.
+            temp = temp + 0.55 * hardness * _sensor_lag(
+                rng.randn(p, n_ft), 0.8, dt)
+            t_sens = _TEMP_SENSOR_TAU * np.exp(0.25 * hardness * rng.randn())
+            temp = _sensor_lag(temp, t_sens * hardness, dt)
+            temp += noise_scale * 0.08 * rng.randn(p, n_ft)
+
+            # --- force: stiffness shows up in FOUR cues of different
+            # nuisance structure — the peak (confounded with impact velocity
+            # v and quality q), the rise time (soft materials load slowly),
+            # viscoelastic creep of the plateau (soft materials relax; shape
+            # cue, v-invariant), and the contact oscillation frequency
+            # (v-free). Many labels can combine/deconfound them; a handful
+            # cannot — that asymmetry shapes the label-efficiency curve.
+            s_eff = float(np.clip(o_stiff, 0.0, 1.1))
+            # contact-trigger latency (round-3b, sign fixed round 4): the
+            # force channel's collision detection reports contact a
+            # poke-random few tens of ms LATE (gauge DSP buffering +
+            # threshold crossing on a noisy rise), so in window coordinates
+            # the impact transient sits at -lag — the same convention as the
+            # mic channel's ``tc = t_c + lat`` below and the reference's
+            # windows around the DETECTED impactTime (processdata.py:55).
+            # A 0.1-0.2 s window is then mostly the misaligned spike/ramp
+            # (published Force @0.1 s = 70.9 %, paperplotly.py:51), while
+            # >=1 s windows keep the creep and ring-down cues — time
+            # CONSTANTS are shift-invariant.
+            # Seeded off the object's stiffness draw MIXED with a running
+            # per-object counter (not the main stream, so the temperature
+            # and audio draws are unperturbed; the counter keeps equal
+            # stiffness draws from yielding identical jitter sequences).
+            srng = np.random.RandomState(
+                (int(o_stiff * 1e7) + 1000003 * obj_counter) % (2 ** 31 - 1))
+            obj_counter += 1
+            # trigger latency is mostly a fixed property of the object's
+            # rise shape (threshold crossing on ITS ramp) — consistent
+            # across pokes, so the model can align around it — plus a small
+            # poke-random detection jitter that smears sub-window alignment.
+            # Scaled by hardness so hardness=0 collapses the misalignment
+            # like every other poke nuisance (docstring contract).
+            # poke jitter is kept sub-sample-scale (8 ms at 100 Hz): larger
+            # values decohere the ring-down phase across pokes (16 ms x the
+            # ~20 Hz contact ring ~ 2 rad) and destroy the LONG-window
+            # hard-cluster cue, flattening the published 0.2 -> 1 s rise
+            # (hardware probe: @1 s fell to 79.8 vs published 86.9 at 16 ms)
+            lag = hardness * (np.abs(0.020 + 0.020 * srng.randn())
+                              + np.abs(0.008 * srng.randn(p, 1)))
+            ct_f = np.maximum(t_ft[None, :] + lag, 0.0)
+            # iter-3: the round-4 full-t1 regen read the force low-label end
+            # 9-13 points BELOW published (53.2 @1 % vs 62.1) with 50/100 %
+            # on the mark — the per-poke peak noise + settle wobble below
+            # were over-strengthened in iter-2; trimmed so the unlabeled
+            # manifold is clean enough for the GAN's low-label gains while
+            # single-poke ambiguity still caps the supervised ceiling
+            # (r5.1 probed peak noise 0.13 -> 0.10 for the cold force
+            # low-label cells and reverted: the trim lifts SHORT Table-5
+            # windows even more than low-label cells — amplitude is most of
+            # what a 0.1 s window can read — and those were already hot;
+            # the F+T low-label lift comes from the q_f/q_t decorrelation
+            # above instead, which raises fusion gain without easing
+            # single-modality cells)
+            peak = (3.0 + 4.0 * o_stiff) * v * q**0.3 \
+                * (1 + 0.13 * rng.randn(p, 1))
+            # impact spike: impulse transient proportional to velocity ALONE
+            # (stiffness-independent) — an explicit v readout that a richly-
+            # labeled model can use to deconfound the peak, but 10 labels per
+            # class cannot. Gated on the contact mask so pre-contact samples
+            # read baseline+noise only (no full-amplitude pedestal exposing
+            # v before the impact).
+            on = (t_ft[None, :] > -lag)  # impact sits at -lag (see above)
+            spike = 2.5 * v * np.exp(-ct_f / 0.02) \
+                * (1 + 0.15 * rng.randn(p, 1)) * on
+            # (r5.2 probed rise-time jitter 0.26 -> 0.38 to cool the
+            # warm Table-5 force short windows and reverted: rise time is
+            # itself a class cue at EVERY window length, so the jitter cut
+            # long-window information nearly as much as short — the same
+            # wrong shape as the settle transient and trigger jitter
+            # probes. The t5 force family passes the committed gate at the
+            # r4i3 constants (+7.4 worst cell < the 9.0 bar), so the
+            # channel stays exactly r4i3 and the round-5 changes target
+            # only the FAILING families.)
+            rise = (0.012 + 0.10 * (1.0 - s_eff)) \
+                * np.exp(0.26 * hardness * rng.randn(p, 1))
+            ramp = 1.0 - np.exp(-ct_f / np.maximum(rise, 1e-3))
+            creep_amt = np.clip(0.5 * (1.0 - s_eff), 0.0, 0.6) \
+                * (1 + 0.10 * hardness * rng.randn(p, 1))
+            # fast enough that a 1 s window reads most of the relaxation
+            # (published Force keeps rising 75.1 -> 86.9 over 0.2 -> 1 s and
+            # is flat after, paperplotly.py:50) but a 0.2 s window sees <30%
+            t_creep = 0.5 * np.exp(0.15 * hardness * rng.randn())  # per object
+            plateau = 1.0 - creep_amt * (1.0 - np.exp(-ct_f / t_creep))
+            # contact oscillation: the low-frequency analog of the object's
+            # acoustic response (same latent resonance/damping — it is the
+            # same physical contact), scaled into the force sensor's 100 Hz
+            # band. This is what makes the stiff cluster {metal, ceramic,
+            # glass} force-separable at all: their rise times differ by
+            # ~15 ms (sub-sample at 100 Hz) but their ring-down times differ
+            # by hundreds of ms.
+            osc = (
+                0.65 * o_stiff * (0.5 + 0.7 * o_amp)
+                * np.exp(-ct_f / np.maximum(osc_t, 1e-3))
+                * np.sin(2 * np.pi * osc_f * ct_f)
+            )
+            ratio = 0.8 + 0.05 * hardness * rng.randn(p, 1)
+            f0_sig = _sensor_lag(peak * ramp * plateau + peak * osc + spike,
+                                 _FORCE_SENSOR_TAU * hardness, dt)
+            f1_sig = _sensor_lag(ratio * peak * ramp * plateau
+                                 + peak * osc * 0.7 + 0.9 * spike,
+                                 _FORCE_SENSOR_TAU * hardness, dt)
+            # contact-settling transient: immediately after impact the
+            # fingertip pad conforms viscoelastically and the gripper
+            # re-seats, so for the first ~tenth second the load path — and
+            # with it the gauge's effective gain and baseline — wanders
+            # poke-randomly before settling. This corrupts only the first
+            # few samples after the (already late) trigger, compounding the
+            # short-window penalty without touching >=0.5 s cues.
+            # iter-3b: settle transient lasts longer (0.14 -> 0.22 s) at a
+            # trimmed amplitude — it must degrade the 0.1-0.5 s windows
+            # (published 70.9/75.1/81.8 %) yet stay a rounding error across
+            # a 4 s window so the Table-1 low-label cells aren't re-crushed
+            # (r5.1 probed settle 0.26 s / gains 0.085 / wobble 0.22 to
+            # cool the hot Table-5 force short windows and REVERTED: the
+            # paired proxy grid measured the short windows nearly unmoved
+            # (-1.3 @0.1/0.2 s) while the LABEL-efficiency cells collapsed
+            # (-4.6 @4 %, -10.5 @16 %, and the 1/3 s duration cells dipped
+            # enough to break the duration curve's rank order) — a
+            # quarter-second per-poke gain/offset nuisance is a label-curve
+            # knob, not a window-length knob)
+            t_set = 0.22 * np.exp(0.25 * srng.randn(p, 1))
+            settle = np.exp(-ct_f / np.maximum(t_set, 1e-3)) * on
+            gain0 = 1.0 + 0.065 * hardness * srng.randn(p, 1) * settle
+            gain1 = 1.0 + 0.065 * hardness * srng.randn(p, 1) * settle
+            wobble = peak * 0.15 * hardness
+            off0 = wobble * srng.randn(p, 1) * settle
+            off1 = wobble * srng.randn(p, 1) * settle
+            force0 = f0_sig * gain0 + off0 \
+                + noise_scale * 0.08 * rng.randn(p, n_ft)
+            force1 = f1_sig * gain1 + off1 \
+                + noise_scale * 0.08 * rng.randn(p, n_ft)
+
+            # --- contact mic: class-generic broadband onset click (dominates
+            # the first ~15 ms) + material ringing whose SNR accrues with
+            # window duration; separate RNG so skipping audio doesn't
+            # perturb the force/temperature draws. r5.2: seeded from
+            # (dataset seed, object counter) instead of the main stream —
+            # drawing it from `rng` made the audio realization depend on
+            # how many force/temperature draws preceded it, so every
+            # calibration edit to those channels silently reshuffled the
+            # mic cells too (caught when a draw-count change flipped a
+            # mic property test); now mic data is bitwise-invariant to
+            # force/temperature calibration.
+            audio_seed = (1000003 * seed + 7919 * obj_counter) % (2**31 - 1)
+            objects[obj] = {
+                "temperature": temp.astype(np.float32),
+                "force0": force0.astype(np.float32),
+                "force1": force1.astype(np.float32),
+                "temperatureTime": np.broadcast_to(t_ft, (p, n_ft)).copy(),
+                "forceTime": np.broadcast_to(t_ft, (p, n_ft)).copy(),
+            }
+            if with_contact:
+                arng = np.random.RandomState(audio_seed)
+                # collision-detection latency: the processed mic window is
+                # centered on the >1 degC thermal-delta detection time
+                # (reference temperaturepublisher.py:86-93 feeding
+                # processdata.py:79-80), which fires tens of ms AFTER the
+                # mechanical impact with poke-to-poke jitter. In window
+                # coordinates the acoustic event sits at -latency, so the
+                # shortest Table-5 windows (+-25 ms) lose a varying fraction
+                # of the onset and early ring — their mel frames decohere
+                # across pokes — while +-100 ms windows keep everything.
+                # (r5.1 probed spread 1.60 here for the hot 0.05 s cell
+                # and reverted: the heavier latency tail costs MID windows
+                # more than short ones — pokes with lat > 100 ms lose the
+                # onset even at +-100 ms, and the loader's mid/short
+                # information ratio fell below its property bar — so the
+                # short-window trim lives in the clutter level below)
+                lat = hardness * 0.030 * np.exp(1.45 * arng.randn(p, 1))
+                tc = t_c[None, :] + lat
+                pos = tc >= 0.0
+                # contact stiffening: modal frequencies settle onto their
+                # free-ring values over ~15 ms as the fingertip loads the
+                # object, so the instantaneous frequency glides by up to
+                # ~20 % early on. A +-25 ms window integrates mostly glide
+                # (smeared spectral peak, f0 unreadable); >=0.1 s windows
+                # are dominated by the settled tone.
+                t_settle = 0.015
+                chirp_c = 0.22 * hardness * arng.randn(p, 1)
+                tpos = np.maximum(tc, 0.0)
+                warp = tpos + chirp_c * t_settle \
+                    * (1.0 - np.exp(-tpos / t_settle))
+                ring = np.zeros((p, n_c), np.float64)
+                for mode, (fm, am) in enumerate(
+                    [(o_res, 1.0), (o_res * o_part_hi, 0.4),
+                     (o_res * o_part_lo, 0.6)]
+                ):
+                    phase = arng.uniform(0, 2 * np.pi, (p, 1))
+                    fm_p = fm * arng.uniform(0.97, 1.03, (p, 1))
+                    # excitation-dependent mode balance: which partials ring
+                    # depends on where/how the poke lands
+                    # r5.1: 0.80 -> 0.90 — the r4i3 Table-1 mic label curve
+                    # ran 4-8.5 points hot at 1-16 % labels (51.4 @1 % vs
+                    # published 42.9) while 50/100 % were on the mark:
+                    # wider excitation-dependent mode balance makes a
+                    # SINGLE poke's spectrum more ambiguous about its
+                    # object (low-label pain) while thousands of unlabeled
+                    # pokes still expose the class manifold. (1.00 was
+                    # probed first and halved the mid-window Fisher score
+                    # of the fully-labeled features — an ALL-cell hit, not
+                    # a low-label one; the loader property test caught it.)
+                    am_p = am * np.exp(
+                        0.90 * hardness * arng.randn(p, 1))
+                    dec_p = o_decay * (1 + 0.55 * mode) \
+                        * (1 + 0.10 * hardness * arng.randn(p, 1))
+                    if mode == 0:
+                        fm0, phase0, am0 = fm_p, phase, am_p
+                    ring += (
+                        am_p
+                        * np.exp(-tpos * np.maximum(dec_p, 1.0))
+                        * np.sin(2 * np.pi * fm_p * warp + phase)
+                        * pos
+                    )
+                # resonance builds up over ~25 ms while the contact settles:
+                # the shortest Table-5 windows (+-25 ms) see mostly the
+                # class-generic impact clutter over a half-built ring, which
+                # is what gives the published mic duration curve its steep
+                # low end (63.3% @0.05 s); windows >=0.2 s (100 ms
+                # post-contact) are barely attenuated
+                # round-4: 0.034 s build left +-25 ms windows too readable
+                # (probe: 73.0 % @0.05 s vs published 63.3)
+                # r5.4: 0.048 -> 0.056 — a gentle bump (0.062 was probed
+                # and too strong) to cool the 0.05-0.3 s mic cells the
+                # r5.3 texture boost left hot (+5.6 @0.05 s, +3.3 @0.1 s
+                # paired) while the >=0.5 s cells, dominated by settled
+                # ring + texture + tail, barely notice
+                t_build = 0.056 * np.exp(0.30 * hardness * arng.randn(p, 1))
+                ring *= 1.0 - np.exp(-np.maximum(tc, 0.0)
+                                     / np.maximum(t_build, 1e-4))
+                # biexponential fundamental decay: a low free-ring tail
+                # (~-18 dB of the SAME mode — frequency, phase, and
+                # excitation amplitude shared, so it adds no extra spectral
+                # cue) outlives the driven contact by an order of magnitude.
+                # The free-ring decay grows superlinearly with material loss
+                # (internal friction dominates once the fingertip decouples),
+                # spreading the tails far apart: metal ~2 s, glass ~1 s,
+                # ceramic ~0.8 s, while plastic/wood/fabric die within
+                # ~0.04-0.15 s. Long Table-5 windows therefore keep GAINING
+                # class signal — the 0.3-1 s frames discriminate exactly the
+                # force-confused hard cluster {metal, ceramic, glass} — which
+                # is what makes the published mic duration curve rise through
+                # 1 s (63.3 -> 84.6%) instead of dipping once the driven
+                # contact has decayed.
+                tail_dec = 0.005 * o_decay**1.5 \
+                    * (1 + 0.15 * hardness * arng.randn(p, 1))
+                # free-ring amplitude also falls with internal friction: a
+                # lossy object barely rings once the fingertip decouples, so
+                # plastic/wood/fabric tails are near-silent (no sustained-
+                # level cue in short windows), while the hard cluster's
+                # tails stay loud enough to discriminate in long windows.
+                tail_amp = 0.22 * np.exp(-(o_decay - 12.0) / 40.0)  # r5.3: 0.18 -> 0.22 (see texture note)
+                tail = (
+                    tail_amp * am0
+                    * np.exp(-tpos * np.maximum(tail_dec, 0.3))
+                    * np.sin(2 * np.pi * fm0 * warp + phase0)
+                    * pos
+                )
+                ring += tail * (1.0 - np.exp(-tpos / np.maximum(t_build,
+                                                                1e-4)))
+                ring *= o_amp * 140.0 * v * q
+                # class-generic impact transient: broadband noise burst PLUS
+                # a bed of excitation-dependent clutter modes (the fingertip/
+                # object/arm assembly rings at poke-random frequencies
+                # unrelated to material, decaying over ~10-40 ms). At short
+                # times every impact therefore looks alike — clutter peaks
+                # bury the material modes — and the material spectrum only
+                # dominates once the clutter has decayed, which is what makes
+                # the published mic duration curve rise (63.3 % @0.05 s ->
+                # 84.6 % @1 s) instead of saturating.
+                click = 180.0 * np.exp(-np.maximum(tc, 0.0) * 280.0) \
+                    * arng.randn(p, n_c)
+                for _ in range(3):
+                    f_cl = np.exp(arng.uniform(np.log(500.0), np.log(3800.0),
+                                               (p, 1)))
+                    dec_cl = np.exp(arng.uniform(np.log(110.0), np.log(260.0),
+                                                 (p, 1)))
+                    # r5.1: 330 -> 400 — more class-generic clutter energy
+                    # buries the half-built ring in +-25 ms windows
+                    # (published 63.3 % @0.05 s, r4i3 regen +8.5) while
+                    # windows >=0.2 s barely notice (clutter decays at
+                    # 110-260 /s, gone by ~100 ms post-impact)
+                    a_cl = 400.0 * np.exp(0.5 * arng.randn(p, 1))
+                    click += a_cl * np.exp(-np.maximum(tc, 0.0) * dec_cl) \
+                        * np.sin(2 * np.pi * f_cl * tc
+                                 + arng.uniform(0, 2 * np.pi, (p, 1)))
+                click *= hardness * v * pos
+                # sustained contact-texture noise: while the fingertip dwells
+                # on the object, micro-slip friction radiates low-level noise
+                # whose LEVEL follows surface roughness (fabric >> wood >
+                # plastic > ceramic/metal/glass). Per-frame it sits barely
+                # above the sensor noise floor, so short windows cannot read
+                # it — its discriminability accrues like sqrt(frames), the
+                # mechanism behind the published mic curve's slow rise
+                # through 1 s windows (paperplotly.py:53-54) after the
+                # driven ring has decayed.
+                o_rough = _SURFACE_ROUGHNESS[material] \
+                    * np.exp(0.35 * hardness * arng.randn())
+                tex = _sensor_lag(arng.randn(p, n_c), 1.0 / (2 * np.pi * 1200.0),
+                                  1.0 / SR)
+                # round-4: 7.5 (was 6.0) — the published curve keeps rising
+                # 83.8 -> 84.6 over 0.5 -> 1 s; at 6.0 the probe measured a
+                # dip (85.9 -> 84.7), i.e. the sqrt-frames texture gain was
+                # not quite paying for the extra noise frames
+                # r5.3: 7.5 -> 9.0, and the published mic duration curve's
+                # defining feature is that it KEEPS rising through 1 s
+                # (84.6 % is the curve's top, paperplotly.py:53-54) while
+                # ours flattened at 0.5-0.7 s and dipped at 1 s — the rank
+                # inversion behind the r4i3 rho=0.64 gate failure. The
+                # sqrt-frames texture accrual is the mechanism that pays
+                # out only in long windows.
+                tex *= 9.0 * o_rough * q * pos
+                noise = noise_scale * 2.5 * arng.randn(p, n_c)
+                contact = ring + click + tex + noise
+                objects[obj]["contact"] = contact.astype(np.float32)
+                objects[obj]["contactTime"] = np.broadcast_to(
+                    t_c, (p, n_c)).copy()
+        out[material] = objects
+    return out

@@ -1,46 +1,184 @@
-"""The discriminator, eval mode, as an ``nn.Module``.
+"""The generator and discriminator: functional forms for the trainer, and
+the eval-mode discriminator as an ``nn.Module`` for serving.
 
-Port of the serving half of ``mrgan_tpu/models/nets.py``. The architecture
-is pinned to the reference (mr_gan.py:117-128): D1000 relu -> D500 relu ->
-D250 relu -> D250 relu -> mid = D250 relu -> D(num_classes), with ``mid``
-returned beside the logits. In eval mode the GaussianNoise layers are the
-identity, so the forward pass is the dense chain alone; the train-mode
-noise, the generator and the MLP arrive with the trainer.
+Port of ``mrgan_tpu/models/nets.py``. Architectures are pinned to the
+reference:
 
-Weights follow Keras 2.0.9 Dense defaults (glorot_uniform, zero bias). The
-JAX package keeps each ``w`` as (in, out); ``nn.Linear`` keeps (out, in),
-so ``discriminator_from_jax`` / ``discriminator_to_jax`` transpose.
+- generator (mr_gan.py:110-114): z(100) -> D500 softplus -> BatchNorm ->
+  D500 softplus -> D(D). The BatchNorm uses batch statistics only, with
+  biased variance and eps 2e-5: the reference never runs Keras's moving
+  averages and always runs the generator in train phase. ``nn.BatchNorm1d``
+  keeps running statistics and defaults to eps 1e-5, so it is not used.
+- discriminator (mr_gan.py:117-128): GaussianNoise(0.3) -> D1000 relu ->
+  GN(0.5) -> D500 relu -> GN(0.5) -> D250 relu -> GN(0.5) -> D250 relu ->
+  GN(0.5) -> mid = D250 relu -> D(num_classes), with ``mid`` returned beside
+  the logits for the feature-matching loss.
+
+The functional forms take parameter dicts in the JAX package's layout
+({"d0": {"w": (in, out), "b": (out,)}, ...}) with a leading fold axis on
+every leaf: ``w`` is (F, in, out), and a dense layer is one
+``torch.baddbmm`` over the folds. Noise is an argument: the train-mode
+discriminator takes its five standard-normal tensors from the caller and
+scales them (0.3 on the input, masked by ``in_mask``, then 0.5 after each
+trunk layer), so the trainer draws them and a test can feed the JAX
+package's own draws.
+
+Weights follow Keras 2.0.9 Dense defaults (glorot_uniform, zero bias; BN
+gamma 1, beta 0). ``nn.Linear`` keeps (out, in), so the serving module's
+``discriminator_from_jax`` / ``discriminator_to_jax`` transpose.
 """
 
 import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+BN_EPS = 2e-5
 DISC_WIDTHS = (1000, 500, 250, 250)
+NOISE_STDDEVS = (0.3, 0.5, 0.5, 0.5, 0.5)  # input + after each trunk layer
 
 
 def glorot_uniform(generator, shape, device=None):
-    """U(-limit, limit), limit = sqrt(6 / (fan_in + fan_out)), for an
-    (in, out) = ``shape`` weight, drawn from ``generator``."""
-    fan_in, fan_out = shape[0], shape[1]
+    """U(-limit, limit), limit = sqrt(6 / (fan_in + fan_out)), for a
+    (..., in, out) = ``shape`` weight, drawn from ``generator``."""
+    fan_in, fan_out = shape[-2], shape[-1]
     limit = math.sqrt(6.0 / (fan_in + fan_out))
     w = torch.empty(shape, dtype=torch.float32, device=device)
     return w.uniform_(-limit, limit, generator=generator)
 
 
-def dense_init(generator, in_dim, out_dim, device=None):
-    """{"w": (in, out) glorot, "b": zeros} — the JAX package's layout."""
+def dense_init(generator, in_dim, out_dim, device=None, folds=()):
+    """{"w": (*folds, in, out) glorot, "b": (*folds, out) zeros} — the JAX
+    package's layout, with an optional leading fold axis."""
+    folds = tuple(folds)
     return {
-        "w": glorot_uniform(generator, (in_dim, out_dim), device),
-        "b": torch.zeros((out_dim,), dtype=torch.float32, device=device),
+        "w": glorot_uniform(generator, folds + (in_dim, out_dim), device),
+        "b": torch.zeros(folds + (out_dim,), dtype=torch.float32,
+                         device=device),
     }
 
 
+def dense(p, x):
+    """(F, B, in) rows through (F, in, out) weights, plus the bias."""
+    return torch.baddbmm(p["b"].unsqueeze(-2), x, p["w"])
+
+
+def batchnorm_train(p, x):
+    """Batch-statistics normalization over the rows (axis -2) of each fold,
+    biased variance (mrgan_tpu/models/nets.py:74-85)."""
+    mean = x.mean(dim=-2, keepdim=True)
+    var = ((x - mean) ** 2).mean(dim=-2, keepdim=True)
+    inv = torch.rsqrt(var + BN_EPS)
+    return ((x - mean) * inv * p["gamma"].unsqueeze(-2)
+            + p["beta"].unsqueeze(-2))
+
+
+# --------------------------------------------------------------------------
+# Generator
+# --------------------------------------------------------------------------
+
+def generator_init(generator, noise_size, out_dim, n_folds, hidden=500,
+                   device=None):
+    folds = (n_folds,)
+    d1 = dense_init(generator, noise_size, hidden, device, folds)
+    d2 = dense_init(generator, hidden, hidden, device, folds)
+    d3 = dense_init(generator, hidden, out_dim, device, folds)
+    ones = torch.ones((n_folds, hidden), dtype=torch.float32, device=device)
+    return {"d1": d1, "bn": {"gamma": ones, "beta": torch.zeros_like(ones)},
+            "d2": d2, "d3": d3}
+
+
+def generator_apply(params, z, out_mask=None):
+    """(F, B, noise) -> (F, B, D); always train phase, like the reference.
+    ``out_mask``: (D,) 0/1, zeroes the padded feature columns."""
+    x = F.softplus(dense(params["d1"], z))
+    x = batchnorm_train(params["bn"], x)
+    x = F.softplus(dense(params["d2"], x))
+    x = dense(params["d3"], x)
+    if out_mask is not None:
+        x = x * out_mask
+    return x
+
+
+# --------------------------------------------------------------------------
+# Discriminator
+# --------------------------------------------------------------------------
+
+def discriminator_init(generator, in_dim, num_classes, n_folds,
+                       widths=DISC_WIDTHS, mid_width=250, device=None):
+    folds = (n_folds,)
+    params = {}
+    d = in_dim
+    for i, w in enumerate(widths):
+        params["d%d" % i] = dense_init(generator, d, w, device, folds)
+        d = w
+    params["mid"] = dense_init(generator, d, mid_width, device, folds)
+    params["out"] = dense_init(generator, mid_width, num_classes, device,
+                               folds)
+    return params
+
+
+def discriminator_apply(params, x, noise=None, in_mask=None,
+                        widths=DISC_WIDTHS):
+    """(F, B, D) -> (logits, mid). ``noise``: None for eval mode, or the
+    train-mode GaussianNoise draws as five standard-normal tensors shaped
+    like the input and each trunk layer's output. ``in_mask``: (D,) 0/1,
+    keeps the input noise off padded columns."""
+    if noise is not None:
+        n = NOISE_STDDEVS[0] * noise[0]
+        if in_mask is not None:
+            n = n * in_mask
+        x = x + n
+    for i in range(len(widths)):
+        x = torch.relu(dense(params["d%d" % i], x))
+        if noise is not None:
+            x = x + NOISE_STDDEVS[i + 1] * noise[i + 1]
+    mid = torch.relu(dense(params["mid"], x))
+    return dense(params["out"], mid), mid
+
+
+# --------------------------------------------------------------------------
+# JAX-layout trees
+# --------------------------------------------------------------------------
+
+def tree_from_jax(tree, device=None, fold_axis=True):
+    """A nested dict of numpy arrays in the JAX layout -> float32 tensors on
+    ``device``; ``fold_axis=False`` means the arrays have none yet and one
+    of size 1 is added."""
+    if isinstance(tree, dict):
+        return {k: tree_from_jax(v, device, fold_axis) for k, v in tree.items()}
+    t = torch.tensor(np.asarray(tree, np.float32), device=device)
+    return t if fold_axis else t.unsqueeze(0)
+
+
+def tree_to_jax(tree):
+    """The inverse of :func:`tree_from_jax`: numpy float32, fold axis kept."""
+    if isinstance(tree, dict):
+        return {k: tree_to_jax(v) for k, v in tree.items()}
+    return tree.detach().float().cpu().numpy()
+
+
+def generator_from_jax(params, device=None):
+    """The JAX package's generator tree (numpy, with or without a leading
+    fold axis) -> the functional form's tensors, fold axis leading."""
+    return tree_from_jax(params, device, np.ndim(params["d1"]["w"]) == 3)
+
+
+def generator_to_jax(params):
+    """The functional form's generator tensors -> numpy, fold axis kept."""
+    return tree_to_jax(params)
+
+
+# --------------------------------------------------------------------------
+# Serving: the eval-mode discriminator as a module
+# --------------------------------------------------------------------------
+
 class Discriminator(nn.Module):
     """Layers d0..d{n-1}, ``mid`` and ``out``; ``forward(x)`` returns
-    (logits, mid). Serving only: the module refuses train mode."""
+    (logits, mid). Serving only: the module refuses train mode (training
+    runs the functional forms above)."""
 
     def __init__(self, in_dim, num_classes=6, widths=DISC_WIDTHS,
                  mid_width=250, *, generator, device=None):
@@ -62,7 +200,8 @@ class Discriminator(nn.Module):
     def forward(self, x):
         if self.training:
             raise NotImplementedError(
-                "train-mode GaussianNoise is not ported; call .eval()")
+                "the serving module is eval-only; training uses "
+                "discriminator_apply; call .eval()")
         for i in range(len(self.widths)):
             x = torch.relu(getattr(self, "d%d" % i)(x))
         mid = torch.relu(self.mid(x))
@@ -77,7 +216,8 @@ def _layer_names(params):
 
 def discriminator_from_jax(params, device=None):
     """JAX parameter dict of numpy arrays ({"d0": {"w": (in, out), "b"}, ...,
-    "mid", "out"}) -> an eval-mode ``Discriminator`` on ``device``."""
+    "mid", "out"}, one fold) -> an eval-mode ``Discriminator`` on
+    ``device``."""
     names = _layer_names(params)
     shapes = [np.shape(params[n]["w"]) for n in names]
     disc = Discriminator(shapes[0][0], shapes[-1][1],

@@ -15,10 +15,12 @@ NEAR_CONSTANT_RTOL = 1.2e-6
 
 
 def fit(x_train):
-    """Return (mean, scale) fitted on (N, D) x_train; StandardScaler
-    semantics with the near-constant pass-through guard."""
-    mean = torch.mean(x_train, dim=0)
-    var = torch.mean(torch.square(x_train - mean), dim=0)
+    """Return (mean, scale) fitted along the row axis (-2) of x_train, (N, D)
+    or (F, N, D) for F folds at once; StandardScaler semantics with the
+    near-constant pass-through guard. Both are (D,) or (F, D)."""
+    mean = torch.mean(x_train, dim=-2, keepdim=True)
+    var = torch.mean(torch.square(x_train - mean), dim=-2)
+    mean = mean.squeeze(-2)
     std = torch.sqrt(var)
     tiny = std <= NEAR_CONSTANT_RTOL * torch.clamp(torch.abs(mean), min=1.0)
     return mean, torch.where(tiny, torch.ones_like(std), std)

@@ -12,8 +12,8 @@ StandardScaler statistics and the modality/frontend configuration:
 
 Snapshots use the JAX package's pickled-numpy schema, so a classifier
 trained by ``fit_classifier`` of ``mrgan_tpu/serve.py`` and saved as ``.pkl`` serves
-here (``from_jax_blob`` for a blob already in memory). Training
-(``fit_classifier``) is not ported yet.
+here (``from_jax_blob`` for a blob already in memory), and one trained here
+by :func:`fit_classifier` serves there.
 """
 
 import numpy as np
@@ -22,7 +22,9 @@ import torch
 from . import MATERIALS
 from .models import nets
 from .ops import features as feat_ops
+from .train import gan, protocol
 from .utils import params_io
+from .utils import rng as rng_util
 
 
 class MaterialClassifier:
@@ -140,3 +142,36 @@ class MaterialClassifier:
     @classmethod
     def load(cls, path, device):
         return cls.from_jax_blob(params_io.restore(path), device)
+
+
+def fit_classifier(x, y, modality=None, percentlabeled=100, cfg=None, seed=0,
+                   ft_time=4.0, c_time=0.2, *, device):
+    """Train the semi-supervised GAN on all of (x, y) and return a
+    deployable classifier on ``device`` (port of ``mrgan_tpu/serve.py:142-171``):
+    scaler stats fit on the whole set, like a final production fit; the
+    labeled rows are the first 10 * percentlabeled of each class after one
+    seeded shuffle, every row is in the unlabeled pool, and the trainer's
+    generator is seeded with ``seed``."""
+    cfg = gan.GanConfig() if cfg is None else cfg
+    device = torch.device(device)
+    rng = np.random.RandomState(seed)
+    x = torch.as_tensor(x, dtype=torch.float32, device=device)
+    y = torch.as_tensor(y, device=device).to(torch.int64)
+    xp, valid_dim = gan.pad_features(x, cfg.pad_multiple)
+    mean, inv = gan.scale_stats(xp)
+    xs = (xp - mean) * inv
+    rows = np.arange(len(xs))
+    lab, pool, _, _ = protocol.fold_indices(
+        y.cpu().numpy(), rows, rows[:1], percentlabeled, None,
+        cfg.num_classes, rng)
+    lab, pool = (torch.as_tensor(a.astype(np.int64), device=device)
+                 for a in (lab, pool))
+    _, aux = gan.train_folds(
+        rng_util.make_generator(seed, device), xs[lab][None], y[lab][None],
+        xs[pool][None], xs[:1][None], y[:1][None],  # a dummy test row
+        n_train=len(xs), valid_dim=valid_dim, cfg=cfg)
+    disc = gan.params_to_jax(aux["params"])["disc"]
+    disc = {k: {n: a[0] for n, a in v.items()} for k, v in disc.items()}
+    return MaterialClassifier(nets.discriminator_from_jax(disc), mean, inv,
+                              modality, valid_dim=valid_dim, ft_time=ft_time,
+                              c_time=c_time, device=device)

@@ -1,14 +1,85 @@
-"""Feature padding and scaler statistics of the GAN trainer.
+"""Semi-supervised GAN training, every fold of a cell at once.
 
-Port of the serving-side helpers of ``mrgan_tpu/train/gan.py``
-(``pad_dim``, ``pad_features``, ``scale_stats``): a JAX ``fit_classifier``
-checkpoint carries a discriminator and scaler at the padded width, and
-serving zero-pads requests to it. The trainer itself is not ported yet.
+Port of ``mrgan_tpu/train/gan.py``. The JAX package runs one training as a
+``lax.scan`` over epochs and batches and six folds under ``vmap``. Here the
+folds are a leading tensor axis: parameters are (F, in, out), each dense
+layer is one ``torch.baddbmm`` (cuBLAS), the loss is the sum over folds of
+each fold's mean loss, so one ``torch.autograd.grad`` gives every fold its
+own gradient, and BatchNorm statistics, feature-matching means and error
+rates are taken per fold. The epoch and batch loops are eager Python on
+the host; the stochastic inputs of a step (batch indices, z, noise) are
+arguments of ``train_step``, drawn by the epoch loop from one
+``torch.Generator`` on the device.
+
+The step order is ``mrgan_tpu/train/gan.py:201-290``: gather the batch;
+G(z1); one discriminator forward over the fused [lab | unl | fake] rows; the
+disc Adam step; G(z2); a forward of the *updated* discriminator over
+[fake | unl2]; the feature-matching loss and the gen Adam step.
+
+Padded feature columns are kept inert by masking the discriminator's input
+noise and the generator's output, as in the JAX package.
 """
 
+import dataclasses
+
+import numpy as np
+import torch
 import torch.nn.functional as F
 
+from ..models import losses, nets
 from ..ops import scaler
+from ..utils import tree
+from . import optim, schedule
+
+ROADMAP_A8 = "ROADMAP.md A8"
+
+
+@dataclasses.dataclass(frozen=True)
+class GanConfig:
+    """The JAX package's ``GanConfig`` fields and defaults, except:
+
+    - ``pad_multiple`` defaults to 1: 128 was the TPU's lane width, and
+      3,632 features are already a multiple of 16. The mask plumbing is
+      kept and works at any multiple.
+    - ``matmul_weight_dtype`` takes only "float32": bf16 weight shadows
+      were bitwise free on the TPU's MXU but change the numbers on the
+      H100 (``ROADMAP.md`` A3).
+    - ``flat_small_carry`` is gone: torch has no scan carry to lay out.
+    - ``track_epoch_metrics`` raises ``NotImplementedError`` (A8).
+    """
+
+    noise_size: int = 100          # mr_gan.py:77
+    batch_size: int = 50           # mr_gan.py:78
+    unlabeled_weight: float = 1.0  # mr_gan.py:79
+    epochs: int = 100              # mr_gan.py:73
+    lr: float = 6e-4               # mr_gan.py:165
+    beta1: float = 0.5
+    num_classes: int = 6
+    pad_multiple: int = 1
+    pad_min: int = 0
+    track_epoch_metrics: bool = False
+    opt_state_dtype: str = "bfloat16"
+    shared_adam_step: bool = True
+    matmul_weight_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.track_epoch_metrics:
+            raise NotImplementedError(
+                "per-epoch metrics (track_epoch_metrics, -v) are not ported "
+                "yet: " + ROADMAP_A8)
+        if self.matmul_weight_dtype != "float32":
+            raise ValueError(
+                "matmul_weight_dtype=%r: the port trains with float32 "
+                "weights only (bf16 shadows change the numbers on the GPU; "
+                "ROADMAP.md A3)" % self.matmul_weight_dtype)
+        if self.opt_state_dtype not in optim.STATE_DTYPES:
+            raise ValueError("opt_state_dtype must be one of %s, got %r"
+                             % (sorted(optim.STATE_DTYPES),
+                                self.opt_state_dtype))
+
+    @property
+    def opt_dtype(self):
+        return optim.STATE_DTYPES[self.opt_state_dtype]
 
 
 def pad_dim(d, multiple, min_dim=0):
@@ -27,7 +98,230 @@ def pad_features(x, multiple=128, min_dim=0):
 
 
 def scale_stats(x_train):
-    """StandardScaler fit with the near-constant guard of ``ops.scaler``.
-    Returns (mean, 1/scale) — the model multiplies rather than divides."""
+    """StandardScaler fit with the near-constant guard of ``ops.scaler``,
+    along the row axis of (N, D) or (F, N, D). Returns (mean, 1/scale) —
+    the model multiplies rather than divides."""
     mean, scale = scaler.fit(x_train)
     return mean, 1.0 / scale
+
+
+def _masks(feat_dim, valid_dim, device):
+    if valid_dim >= feat_dim:
+        return None
+    return (torch.arange(feat_dim, device=device) < valid_dim).to(
+        torch.float32)
+
+
+# --------------------------------------------------------------------------
+# Parameters and optimizer state
+# --------------------------------------------------------------------------
+
+def init_params(generator, feat_dim, cfg, n_folds):
+    """Glorot-initialized {"gen", "disc"} trees for ``n_folds`` folds, drawn
+    from ``generator`` on its device."""
+    dev = generator.device
+    return {
+        "gen": nets.generator_init(generator, cfg.noise_size, feat_dim,
+                                   n_folds, device=dev),
+        "disc": nets.discriminator_init(generator, feat_dim, cfg.num_classes,
+                                        n_folds, device=dev),
+    }
+
+
+def params_from_jax(params, device=None):
+    """The JAX package's {"gen", "disc"} trees of numpy arrays, with or
+    without a leading fold axis -> the port's tensors, fold axis leading."""
+    folded = np.ndim(params["gen"]["d1"]["w"]) == 3
+    return {k: nets.tree_from_jax(params[k], device, folded)
+            for k in ("gen", "disc")}
+
+
+def params_to_jax(params):
+    """The port's {"gen", "disc"} tensors -> numpy, fold axis kept."""
+    return {k: nets.tree_to_jax(params[k]) for k in ("gen", "disc")}
+
+
+def init_state(params, cfg):
+    """The training state: parameters and both Adam states, with the
+    shared step counter (disc t0=-1, gen t0=0, stride 2)."""
+    return {
+        "gen": params["gen"], "disc": params["disc"],
+        "opt_d": optim.init(params["disc"], cfg.opt_dtype,
+                            t0=-1 if cfg.shared_adam_step else 0),
+        "opt_g": optim.init(params["gen"], cfg.opt_dtype),
+    }
+
+
+# --------------------------------------------------------------------------
+# The step and its stochastic inputs
+# --------------------------------------------------------------------------
+
+def epoch_schedule(generator, n_folds, n_lab, n_pool, n_train, batch_size):
+    """An epoch's batch indices (mrgan_tpu/train/gan.py:306-316): tiled
+    permutations over the labeled rows, the pool, and the pool again, each
+    cut to nb * bs and shaped (F, nb, bs)."""
+    nb = n_train // batch_size
+
+    def one(pool):
+        idx = schedule.tiled_permutation(generator, pool, n_train, (n_folds,))
+        return idx[:, : nb * batch_size].reshape(n_folds, nb, batch_size)
+
+    return one(n_lab), one(n_pool), one(n_pool)
+
+
+def draw_step(generator, n_folds, batch_size, feat_dim, cfg):
+    """A step's standard-normal draws: z1 and z2 (F, bs, noise) and the
+    five noise tensors of each discriminator forward (3 bs rows, then 2)."""
+    dev = generator.device
+
+    def normal(*shape):
+        return torch.randn(shape, generator=generator, device=dev)
+
+    def noise(rows):
+        return [normal(n_folds, rows, d)
+                for d in (feat_dim, *nets.DISC_WIDTHS)]
+
+    return {
+        "z1": normal(n_folds, batch_size, cfg.noise_size),
+        "noise_d": noise(3 * batch_size),
+        "z2": normal(n_folds, batch_size, cfg.noise_size),
+        "noise_g": noise(2 * batch_size),
+    }
+
+
+def _with_grad(params):
+    return tree.tree_map(lambda p: p.detach().requires_grad_(), params)
+
+
+def train_step(state, data, li, ui, u2i, rand, *, cfg, mask=None):
+    """One fused disc+gen update of every fold (mr_gan.py:204-213).
+
+    ``data``: the fold-stacked arrays ("x_labeled", "y_labeled", "pool");
+    ``li``/``ui``/``u2i``: (F, bs) row indices into them; ``rand``: the
+    draws of :func:`draw_step`. Returns (new state, (loss_lab, loss_unl,
+    train_err)), each (F,)."""
+    bs = cfg.batch_size
+    rows = torch.arange(li.shape[0], device=li.device).unsqueeze(1)
+    xl = data["x_labeled"][rows, li]
+    yl = data["y_labeled"][rows, li]
+    xu = data["pool"][rows, ui]
+    xu2 = data["pool"][rows, u2i]
+    adam = dict(lr=cfg.lr, b1=cfg.beta1,
+                stride=2 if cfg.shared_adam_step else 1)
+
+    # --- discriminator update (mr_gan.py:166,169) ---
+    with torch.no_grad():
+        x_fake = nets.generator_apply(state["gen"], rand["z1"], out_mask=mask)
+    pd = _with_grad(state["disc"])
+    logits, _ = nets.discriminator_apply(
+        pd, torch.cat([xl, xu, x_fake], dim=1), rand["noise_d"],
+        in_mask=mask)
+    logits_lab, logits_unl, logits_fake = logits.split(bs, dim=1)
+    ll = losses.loss_labeled(logits_lab, yl)
+    lu = losses.loss_unlabeled(logits_unl, logits_fake)
+    d_grads = torch.autograd.grad((ll + cfg.unlabeled_weight * lu).sum(),
+                                  tree.leaves(pd))
+    disc, opt_d = optim.update(tree.unflatten(pd, d_grads), state["opt_d"],
+                               state["disc"], **adam)
+
+    # --- generator update against the updated discriminator ---
+    pg = _with_grad(state["gen"])
+    xf = nets.generator_apply(pg, rand["z2"], out_mask=mask)
+    _, mid = nets.discriminator_apply(disc, torch.cat([xf, xu2], dim=1),
+                                      rand["noise_g"], in_mask=mask)
+    mid_fake, mid_real = mid.split(bs, dim=1)
+    g_loss = losses.loss_feature_matching(mid_fake, mid_real).sum()
+    g_grads = torch.autograd.grad(g_loss, tree.leaves(pg))
+    gen, opt_g = optim.update(tree.unflatten(pg, g_grads), state["opt_g"],
+                              state["gen"], **adam)
+    terr = losses.error_rate(logits_lab.detach(), yl)
+    return ({"gen": gen, "disc": disc, "opt_d": opt_d, "opt_g": opt_g},
+            (ll.detach(), lu.detach(), terr))
+
+
+# --------------------------------------------------------------------------
+# Training
+# --------------------------------------------------------------------------
+
+def train_folds(generator, x_labeled, y_labeled, pool, x_test, y_test,
+                n_train, valid_dim=None, cfg=GanConfig(), n_pool_valid=None):
+    """Train F folds of one cell from prepared, fold-stacked tensors on the
+    generator's device (mrgan_tpu/train/gan.py:139-341, 457-467).
+
+    ``x_labeled`` (F, n_lab, D), ``y_labeled`` (F, n_lab) int64, ``pool``
+    (F, n_pool, D) of which the first ``n_pool_valid`` rows are sampled (all
+    when None), ``x_test`` (F, n_test, D), ``y_test`` (F, n_test). The
+    initial parameters are glorot draws from ``generator``. Returns (test
+    errors as numpy (F,), {"params": {"gen", "disc"}}): the errors of the
+    final eval-mode discriminator on the test rows."""
+    n_folds, n_lab, feat_dim = x_labeled.shape
+    if valid_dim is None:
+        valid_dim = feat_dim
+    n_pool = n_pool_valid if n_pool_valid is not None else pool.shape[1]
+    bs = cfg.batch_size
+    nb = n_train // bs
+    mask = _masks(feat_dim, valid_dim, x_labeled.device)
+    state = init_state(init_params(generator, feat_dim, cfg, n_folds), cfg)
+    data = {"x_labeled": x_labeled, "y_labeled": y_labeled, "pool": pool}
+    for _ in range(cfg.epochs):
+        lab, u1, u2 = epoch_schedule(generator, n_folds, n_lab, n_pool,
+                                     n_train, bs)
+        for b in range(nb):
+            rand = draw_step(generator, n_folds, bs, feat_dim, cfg)
+            state, _ = train_step(state, data, lab[:, b], u1[:, b], u2[:, b],
+                                  rand, cfg=cfg, mask=mask)
+    with torch.no_grad():
+        logits, _ = nets.discriminator_apply(state["disc"], x_test)
+        errors = losses.error_rate(logits, y_test).cpu().numpy()
+    return errors, {"params": {"gen": state["gen"], "disc": state["disc"]}}
+
+
+def pad_pool_indices(pool_idx, train_idx):
+    """Pad the unlabeled-pool index array to the train width
+    (mrgan_tpu/train/gan.py:400-415): padding rows repeat index 0 and are
+    never sampled. Returns (padded_pool_idx, n_pool_valid or None)."""
+    n_pool = pool_idx.shape[-1]
+    n_train = train_idx.shape[-1]
+    if n_pool >= n_train:
+        return pool_idx, None
+    pad = np.repeat(pool_idx[..., :1], n_train - n_pool, axis=-1)
+    return np.concatenate([pool_idx, pad], axis=-1), n_pool
+
+
+def scale_folds(X, y, lab_idx, pool_idx, train_idx, test_idx):
+    """Fold prep on the device (mrgan_tpu/train/gan.py:355-381): gather each
+    fold's train rows, fit the scaler per fold, scale the labeled, pool and
+    test rows. Index arrays are (F, n) tensors on X's device. Returns the
+    keyword arguments of :func:`train_folds` for the data."""
+    mean, inv = scale_stats(X[train_idx])
+    mean, inv = mean.unsqueeze(-2), inv.unsqueeze(-2)
+
+    def scale(a):
+        return (a - mean) * inv
+
+    return {"x_labeled": scale(X[lab_idx]), "y_labeled": y[lab_idx],
+            "pool": scale(X[pool_idx]), "x_test": scale(X[test_idx]),
+            "y_test": y[test_idx]}
+
+
+def train_folds_indexed(generator, X, y, lab_idx, pool_idx, train_idx,
+                        test_idx, valid_dim=None, cfg=GanConfig()):
+    """Train F folds against a device-resident dataset.
+
+    ``X`` (N, D) padded features and ``y`` (N,) int64 labels on the device;
+    ``lab_idx``/``pool_idx``/``train_idx``/``test_idx``: (F, *) numpy row
+    indices into X. Returns the (F,) test errors as numpy."""
+    if valid_dim is None:
+        valid_dim = X.shape[-1]
+    pool_idx, n_pool_valid = pad_pool_indices(np.asarray(pool_idx),
+                                              np.asarray(train_idx))
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=X.device)
+
+    data = scale_folds(X, y, dev(lab_idx), dev(pool_idx), dev(train_idx),
+                       dev(test_idx))
+    errors, _ = train_folds(generator, n_train=np.shape(train_idx)[-1],
+                            valid_dim=valid_dim, cfg=cfg,
+                            n_pool_valid=n_pool_valid, **data)
+    return errors

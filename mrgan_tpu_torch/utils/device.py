@@ -9,6 +9,19 @@ a plain path in TF32 would miss every parity bar the port is held to.
 import torch
 
 
+def resolve(name):
+    """``name`` ("cuda", "cuda:1", "cpu") as a ``torch.device``. A CUDA
+    device without a card raises: nothing falls back to the CPU."""
+    dev = torch.device(name)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError("the port runs on cuda or cpu, got %s" % dev)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device %s was asked for, but no CUDA device is "
+                           "available (torch.cuda.is_available() is False)"
+                           % dev)
+    return dev
+
+
 def set_fp32_policy():
     """Turn TF32 off for matmuls and cuDNN; return a line that says so."""
     torch.backends.cuda.matmul.allow_tf32 = False
