@@ -41,10 +41,32 @@ Phases (any failure raises and the script exits non-zero):
     wall time; the median step time from CUDA events; device time per step,
     device-busy share, the ten device operations that take the most time
     and kernel launches per step, from ``torch.profiler`` over 50 steps.
+11. The kernel at the Table-5 contact-time shapes: 100 pokes of 0.05, 0.1,
+    0.3, 0.5, 0.7 and 1 s of ADC audio (F = 500, 1,000, 2,900, 4,700, 6,600
+    and 9,400 frames) held to the plain path at phase 3's bars; device time
+    of the kernel, the plain path and ``torch.stft`` (cuFFT) + |.|^2 + mel.
+12. The GAN tables: Table 3 at full scale through ``run_gan_loo``
+    (modality 5, 100 % labels, 1 epoch, 72 objects in 12 launches of 6,
+    the labeled rows pinned to the protocol's draw order, peak memory);
+    the peak memory of the widest Table-5 launch (6 folds x 12,032
+    features); ``gan_main --tables 3 5 6`` and ``--tables 1 -v`` at 10
+    pokes per object, their printed structure checked.
+13. The MLP baseline: the 100-epoch, 50 %-label, seed-0 modality-5 cell
+    held to ``artifacts/t24_nn.jsonl`` at phase 8's bars; updates/s, step
+    time, device time and busy share as phase 10 measures them. (The
+    100 % cell's 30,000 host-bound steps take over two minutes; the 50 %
+    cell has half as many.)
+14. The SVM baseline: the 100 %-label, seed-0 modality-5 cell with the
+    native solver held to ``artifacts/t2_svm.jsonl`` (libsvm) at 0.03 a
+    fold; Gram time on the card and SMO time on the host; then
+    ``svm_main --tables 2 4 --deriv`` at 10 pokes per object.
+15. ``nn_main --tables 2 4`` at 10 pokes per object, 1 epoch.
 
 The kernel counts are set to 0 just before each path is driven (phase 4,
-then phases 6-7, then phase 9's request) and read just after; the JSON
-line's ``launches`` is their sum.
+then phases 6-7, phase 9's request, and each path of phases 12-15) and
+read just after; the JSON line's ``launches`` is their sum. Launches made
+to compare the kernel with its plain version or to time it are not
+counted.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA
@@ -54,6 +76,7 @@ device.
 import contextlib
 import io
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -69,7 +92,7 @@ from mrgan_tpu_torch.data import mreo
 from mrgan_tpu_torch.models import nets
 from mrgan_tpu_torch.ops import features, mel, mel_cuda
 from mrgan_tpu_torch.serve import MaterialClassifier, fit_classifier
-from mrgan_tpu_torch.train import gan, protocol
+from mrgan_tpu_torch.train import gan, mlp, protocol, svm
 from mrgan_tpu_torch.utils import device as numeric
 from mrgan_tpu_torch.utils import rng as rng_util
 
@@ -87,8 +110,16 @@ GOLDEN_DB_ATOL = 7e-3                 # tests/test_mel.py:115
 ROUNDING_ATOL = 1e-4                  # fp32 matmul rounding in the logits
 RUNS, WARMUP = 20, 3
 REFERENCE = ROOT / "artifacts" / "t1_sweep.jsonl"
+NN_REFERENCE = ROOT / "artifacts" / "t24_nn.jsonl"
+SVM_REFERENCE = ROOT / "artifacts" / "t2_svm.jsonl"
 FOLD_DELTA, MEAN_DELTA = 0.04, 0.015  # STATUS.md:29, tools/dp_parity.py
+SVM_FOLD_DELTA = 0.03                 # tests/test_native_svm.py:93
 PROFILE_STEPS = 50
+C_TIMES = (0.05, 0.1, 0.3, 0.5, 0.7, 1.0)  # Table 5's, less phase 6's 0.2 s
+SMOKE_POKES = 10
+# H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): TF32 on the tensor
+# cores, float32 on the CUDA cores, HBM3 bytes
+TF32_PEAK, FP32_PEAK, HBM_BYTES_S = 495e12, 67e12, 3.35e12
 
 
 def gpu_line():
@@ -400,11 +431,15 @@ def training_kernel_times(contact, pokes=100):
     t = mel.num_frames(AUDIO_LEN, HOP)
     padded = mel.reflect_pad(contact[:pokes], N_FFT).contiguous()
     frames = padded.unfold(-1, N_FFT, HOP).reshape(-1, N_FFT)
-    print("phase 6 times: kernel device time %s per object (F=%d), plain %s; "
-          "%s for the log-mel of the %d objects" % (
+    bound, bound_by, gemm = mel_bound(pokes, padded.shape[1], pokes * t)
+    print("phase 6 times: kernel device time %s per object (F=%d), plain %s, "
+          "cuFFT route %s; bound %.4f ms (%s), algorithm bound (DFT as a "
+          "3xTF32 GEMM) %.4f ms; %s for the log-mel of the %d objects" % (
               fmt_ms(device_ms(lambda: mel_cuda.mel_power_framed(
                   padded, t, HOP))), pokes * t,
               fmt_ms(device_ms(lambda: mel_cuda.mel_power_reference(frames))),
+              fmt_ms(device_ms(lambda: stft_mel_power(contact[:pokes]))),
+              bound, bound_by, gemm,
               fmt_ms(device_ms(lambda: [mel_cuda.logmel(rows) for rows in
                                         contact.split(pokes)], runs=1)),
               len(contact) // pokes))
@@ -434,13 +469,28 @@ def entry_point(dev_name, epochs=2, pokes=100):
           % (" ".join(argv), wall))
 
 
-def reference_errors():
-    for line in REFERENCE.read_text().splitlines():
+def reference_errors(path=REFERENCE, model="gan", table=1, percent=100):
+    """The JAX package's recorded fold errors of a modality-5 cell."""
+    cell = {"model": model, "table": table, "modality": 5, "percent": percent}
+    for line in path.read_text().splitlines():
         rec = json.loads(line) if line.strip() else {}
-        if rec.get("cell", {}) == {"model": "gan", "table": 1, "modality": 5,
-                                    "percent": 100}:
+        if rec.get("cell", {}) == cell:
             return np.asarray(rec["result"])
-    raise KeyError("no modality-5, 100 %% cell in %s" % REFERENCE)
+    raise KeyError("no cell %s in %s" % (cell, path))
+
+
+def hold_to_reference(name, errs, want, fold_bar, mean_bar):
+    """Print and check per-fold errors against a recorded cell."""
+    delta = errs - want
+    print("%s: port %s, JAX package %s; mean %.4f vs %.4f, worst |delta| "
+          "%.4f (bar %g), |mean delta| %.2f points (bar %s)" % (
+              name, np.round(errs, 4).tolist(), np.round(want, 4).tolist(),
+              errs.mean(), want.mean(), np.abs(delta).max(), fold_bar,
+              100 * abs(delta.mean()),
+              "none" if mean_bar is None else "%.1f" % (100 * mean_bar)))
+    assert np.isfinite(errs).all() and errs.shape == want.shape, errs
+    assert np.abs(delta).max() <= fold_bar, delta
+    assert mean_bar is None or abs(delta.mean()) <= mean_bar, delta
 
 
 def full_cell(ds, epochs=100):
@@ -453,18 +503,10 @@ def full_cell(ds, epochs=100):
     wall = time.perf_counter() - t0
     n_train = len(ds) - len(ds) // 6
     updates = 6 * epochs * (n_train // cfg.batch_size)
-    want = reference_errors()
-    delta = errs - want
-    print("phase 8: modality 5, 100 %% labels, %d epochs, seed 0: port %s, "
-          "JAX package (%s) %s; mean %.4f vs %.4f, worst |delta| %.4f (bar "
-          "%g), |mean delta| %.2f points (bar %.1f); wall %.3f s" % (
-              epochs, np.round(errs, 4).tolist(), REFERENCE.relative_to(ROOT),
-              np.round(want, 4).tolist(), errs.mean(), want.mean(),
-              np.abs(delta).max(), FOLD_DELTA, 100 * abs(delta.mean()),
-              100 * MEAN_DELTA, wall))
-    assert np.isfinite(errs).all() and errs.shape == (6,)
-    assert np.abs(delta).max() <= FOLD_DELTA, delta
-    assert abs(delta.mean()) <= MEAN_DELTA, delta
+    hold_to_reference(
+        "phase 8: modality 5, 100 %% labels, %d epochs, seed 0 vs %s (wall "
+        "%.3f s)" % (epochs, REFERENCE.relative_to(ROOT), wall), errs,
+        reference_errors(), FOLD_DELTA, MEAN_DELTA)
     return errs, wall, updates
 
 
@@ -491,24 +533,65 @@ def fitted_classifier(dev, x, y, synth):
     return counted
 
 
+def time_steps(step, warmup=10, runs=60):
+    """``step(b)``'s median milliseconds between CUDA events, then from
+    torch.profiler over PROFILE_STEPS steps: device ms per step, device
+    operations per step and the operations sorted by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for b in range(warmup):
+        step(b)
+    times = []
+    for b in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(b)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for b in range(PROFILE_STEPS):
+            step(b)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages()
+           if getattr(e, "device_time_total", 0) > 0]
+    busy = sum(e.device_time_total for e in ops) / 1e3 / PROFILE_STEPS
+    per_step = sum(e.count for e in ops) / PROFILE_STEPS
+    return (statistics.median(times), busy, per_step,
+            sorted(ops, key=lambda e: -e.device_time_total))
+
+
+def print_top_ops(label, ops, n=10):
+    print("%s: top device operations per step:" % label)
+    for e in ops[:n]:
+        print("  %8.4f ms  %5.1f/step  %s" % (
+            e.device_time_total / 1e3 / PROFILE_STEPS,
+            e.count / PROFILE_STEPS, e.key[:110]))
+
+
+def fold_tensors(ds, percent, n_items=4):
+    """Phase 8's folds (seed 0) as (F, n) int64 index tensors on the card:
+    (lab, pool, train, test)[:n_items]."""
+    rng = np.random.RandomState(0)
+    splits = protocol.stratified_splits(ds.y_host, 6, seed=0)
+    idx = [protocol.fold_indices(ds.y_host, tr, te, percent, None, 6, rng)
+           for tr, te in splits]
+    return [torch.as_tensor(np.stack([f[i] for f in idx]).astype(np.int64),
+                            device=ds.X.device) for i in range(n_items)]
+
+
 def step_times(ds, cell):
     """Phase 10: updates/s of phase 8, then the step alone: CUDA-event
     median, and device time, busy share, top operations and launches per
     step from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
     errs, wall, updates = cell
     print("phase 10: %d updates (6 folds x epochs x 120 batches) in %.3f s: "
           "%.1f updates/s (phase 7 ran the same path first, as a warm-up)"
           % (updates, wall, updates / wall))
     cfg = gan.GanConfig()
-    rng = np.random.RandomState(0)
-    splits = protocol.stratified_splits(ds.y_host, 6, seed=0)
-    idx = [protocol.fold_indices(ds.y_host, tr, te, 100, None, 6, rng)
-           for tr, te in splits]
-    lab, pool, train, test = (torch.as_tensor(np.stack([f[i] for f in idx])
-                                              .astype(np.int64), device=ds.X.device)
-                              for i in range(4))
+    lab, pool, train, test = fold_tensors(ds, 100)
     data = gan.scale_folds(ds.X, ds.y, lab, pool, train, test)
     generator = rng_util.make_generator(0, ds.X.device)
     state = gan.init_state(gan.init_params(generator, ds.X.shape[1], cfg, 6),
@@ -524,38 +607,370 @@ def step_times(ds, cell):
         state, _ = gan.train_step(state, data, li[:, b % nb], ui[:, b % nb],
                                   u2i[:, b % nb], rand, cfg=cfg)
 
-    for b in range(10):
-        step(b)
-    times = []
-    for b in range(60):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        step(b)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    step_ms = statistics.median(times)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for b in range(PROFILE_STEPS):
-            step(b)
-        torch.cuda.synchronize()
-    ops = [e for e in prof.key_averages()
-           if getattr(e, "device_time_total", 0) > 0]
-    busy = sum(e.device_time_total for e in ops) / 1e3 / PROFILE_STEPS
-    kernels = sum(e.count for e in ops) / PROFILE_STEPS
-    print("phase 10: step (6 folds, batch 50, D=%d): median %.4f ms of %d "
+    step_ms, busy, per_step, ops = time_steps(step)
+    print("phase 10: step (6 folds, batch 50, D=%d): median %.4f ms of 60 "
           "(CUDA events, one step's draws included; %.1f updates/s); device "
           "time %s per step over %d steps (torch.profiler): device busy "
           "%.1f%% of the step; %.1f device operations per step" % (
-              ds.X.shape[1], step_ms, len(times), 6e3 / step_ms, fmt_ms(busy),
-              PROFILE_STEPS, 100 * busy / step_ms, kernels))
-    print("phase 10: top device operations per step:")
-    for e in sorted(ops, key=lambda e: -e.device_time_total)[:10]:
-        print("  %8.4f ms  %5.1f/step  %s" % (
-            e.device_time_total / 1e3 / PROFILE_STEPS,
-            e.count / PROFILE_STEPS, e.key[:110]))
+              ds.X.shape[1], step_ms, 6e3 / step_ms, fmt_ms(busy),
+              PROFILE_STEPS, 100 * busy / step_ms, per_step))
+    print_top_ops("phase 10", ops)
+
+
+# -- the kernel's bound and its library route ----------------------------------
+
+def mel_bound(n_rows, row_len, frames):
+    """The least time the card could take for the mel power of ``frames``
+    frames of n_rows padded audio rows of row_len samples, counting the work
+    the function needs, not the kernel's way of doing it: the larger of the
+    bytes (the audio and the filterbank's nonzero weights read once, the
+    mel output written once) over HBM's rate, and the float32 operations
+    over the CUDA cores' peak. Per frame: the window (N), a real FFT of
+    N = 2048 points (2.5 N log2 N, half the radix-2 complex count), the
+    power (3 a bin) and the projection onto the filterbank's nonzero
+    weights (2 each).
+
+    Returns (ms, "bytes" or "operations", the algorithm bound of the
+    kernel's method: its DFT as a GEMM of 3xTF32 products plus the dense
+    projection, at the TF32 peak, in ms)."""
+    n_bins = N_FFT // 2 + 1
+    nonzero = int(np.count_nonzero(mel.mel_filterbank(48000, N_FFT, 128)))
+    per_frame = (N_FFT + 2.5 * N_FFT * math.log2(N_FFT) + 3 * n_bins
+                 + 2 * nonzero)
+    ops_s = per_frame * frames / FP32_PEAK
+    nbytes = 4 * (n_rows * row_len + nonzero + frames * 128)
+    bytes_s = nbytes / HBM_BYTES_S
+    gemm = 3 * 2 * 2 * N_FFT * n_bins * frames + 2 * n_bins * 128 * frames
+    return (1e3 * max(ops_s, bytes_s),
+            "operations" if ops_s >= bytes_s else "bytes",
+            1e3 * gemm / TF32_PEAK)
+
+
+def stft_mel_power(audio):
+    """The library route to the same function: torch.stft (cuFFT, centered,
+    reflect-padded, periodic hann) -> |.|^2 -> the mel matmul; (B, N)
+    audio -> (B * T, 128), frame-major like ``mel_power_framed``."""
+    window = torch.hann_window(N_FFT, periodic=True, device=audio.device)
+    spec = torch.stft(audio, N_FFT, hop_length=HOP, window=window,
+                      center=True, pad_mode="reflect", return_complex=True)
+    power = torch.view_as_real(spec).square().sum(-1)   # (B, bins, T)
+    melw = mel.bases(48000, N_FFT, 128, audio.device)[2]
+    return (power.transpose(1, 2) @ melw).reshape(-1, 128)
+
+
+def adc_windows(n, audio_len, seed):
+    """n contact-mic windows of audio_len samples in 12-bit ADC counts
+    around 2048, shaped like phase 4's request windows: a decaying tone
+    burst from the window's middle on, plus noise."""
+    rng = np.random.RandomState(seed)
+    tc = (np.arange(audio_len) - audio_len // 2) / 48000.0
+    burst = (rng.uniform(0.2, 1.0, (n, 1)) * 200.0
+             * np.exp(-np.maximum(tc, 0) * rng.uniform(20, 80, (n, 1)))
+             * np.sin(2 * np.pi * rng.uniform(300, 6000, (n, 1)) * tc)
+             * (tc >= 0))
+    return np.round(2048.0 + burst + 2.0 * rng.randn(n, audio_len)).astype(
+        np.float32)
+
+
+def table5_shapes(dev, sms, pokes=100):
+    """Phase 11: the kernel at each Table-5 contact time (one launch per
+    object of 100 pokes), held to the plain path: power on zero-mean audio,
+    log-mel on zero-mean audio, and on raw ADC counts against float64;
+    device time of the kernel, the plain path and the cuFFT route."""
+    worst = 0.0
+    for c_time in C_TIMES:
+        n = int(48000 * c_time)
+        t = mel.num_frames(n, HOP)
+        f = pokes * t
+        audio = torch.from_numpy(adc_windows(pokes, n, seed=t)).to(dev)
+        centered = audio - 2048.0
+        padded = mel.reflect_pad(centered, N_FFT).contiguous()
+        frames = padded.unfold(-1, N_FFT, HOP).reshape(-1, N_FFT)
+        want = mel_cuda.mel_power_reference(frames)
+        err = check_close("F=%d power" % f,
+                          mel_cuda.mel_power_framed(padded, t, HOP), want,
+                          POWER_RTOL, POWER_ATOL)
+        db_err = check_close("F=%d log-mel" % f, mel_cuda.logmel(centered),
+                             mel.logmel(centered), 0, DB_ATOL)
+        got_db, plain_db = mel_cuda.logmel(audio), mel.logmel(audio)
+        truth_db = mel.db_scale(mel_power_f64(
+            mel._frame(audio, N_FFT, HOP).reshape(-1, N_FFT)).reshape(
+                pokes, t, 128))
+        raw_err = (got_db - plain_db).abs().max().item()
+        k_err = (got_db.double() - truth_db).abs().max().item()
+        p_err = (plain_db.double() - truth_db).abs().max().item()
+        assert raw_err <= DB_ATOL or k_err <= 2 * p_err, (f, raw_err, k_err,
+                                                          p_err)
+        lib_err = check_close("F=%d cuFFT route" % f, stft_mel_power(centered),
+                              want, POWER_RTOL, POWER_ATOL)
+        worst = max(worst, db_err)
+        bound, bound_by, gemm = mel_bound(pokes, padded.shape[1], f)
+        times = [device_ms(fn) for fn in (
+            lambda: mel_cuda.mel_power_framed(padded, t, HOP),
+            lambda: mel_cuda.mel_power_reference(frames),
+            lambda: stft_mel_power(centered))]
+        print("phase 11: c_time %.2f s, F=%d (%s): power max_abs_err=%r; "
+              "log-mel zero-mean %r dB; ADC counts: vs plain %r dB, vs "
+              "float64 kernel %r dB, plain %r dB; cuFFT route vs plain "
+              "max_abs_err=%r. Device time: kernel %s, plain %s, cuFFT route "
+              "%s; bound %.4f ms (%s), algorithm bound (DFT as a 3xTF32 "
+              "GEMM) %.4f ms" % (
+                  c_time, f, mel_cuda.describe(mel_cuda._layout(f, sms), f),
+                  err, db_err, raw_err, k_err, p_err, lib_err,
+                  *(fmt_ms(x) for x in times), bound, bound_by, gemm))
+    return worst
+
+
+# -- the paths of this slice: tables, baselines ---------------------------------
+
+def driven(fn):
+    """fn() with the kernel counts set to 0 just before and read just
+    after: (result, DFT kernel launches, bin-group sums)."""
+    mel_cuda.launches = mel_cuda.reduce_launches = 0
+    result = fn()
+    return result, mel_cuda.launches, mel_cuda.reduce_launches
+
+
+def run_cli(main_fn, argv):
+    """main_fn(argv) in-process: (its stdout lines, wall seconds)."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        main_fn(argv)
+    return out.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def count(lines, text, start=False):
+    return sum((l.startswith(text) if start else text in l) for l in lines)
+
+
+def loo_full_scale(dev, pokes=100, percent=100):
+    """Phase 12a: Table 3's protocol at full scale on the card. Returns the
+    path's kernel launches."""
+    kw = dict(modalities=5, synthetic_seed=0, leave_object_out=True,
+              synthetic_kwargs={"pokes_per_object": pokes})
+    trained, before, orig = [], [], gan.train_folds_indexed
+
+    def record(generator, X, y, lab, pool, train, test, **k):
+        trained.append((lab, pool, train, test))
+        return orig(generator, X, y, lab, pool, train, test, **k)
+
+    def path():
+        objects = mreo.load_features(device=dev, **kw)
+        torch.cuda.synchronize()
+        before.append(torch.cuda.memory_allocated(dev))
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        gan.train_folds_indexed = record
+        try:
+            names, errs = protocol.run_gan_loo(
+                objects, percent, cfg=gan.GanConfig(epochs=1), seed=0,
+                device=dev)
+        finally:
+            gan.train_folds_indexed = orig
+        return objects, names, errs, time.perf_counter() - t0
+
+    (objects, names, errs, wall), launches, _ = driven(path)
+    peak = torch.cuda.max_memory_allocated(dev)
+    assert launches == 72 and len(objects) == 72, (launches, len(objects))
+    assert errs.shape == (72,) and np.isfinite(errs).all(), errs
+    assert ((errs >= 0) & (errs <= 1)).all(), errs
+    # the pin: what each launch trained is the protocol's draw order
+    # (a block's six permutations, then its trainer seed) replayed here
+    offs = np.cumsum([0] + [len(objects[n]["y"]) for n in names])
+    y_host = torch.cat([objects[n]["y"] for n in names]).cpu().numpy()
+    rng = np.random.RandomState(0)
+    blocks = []
+    for _, idx, _ in protocol.iter_loo_blocks(names, offs, y_host, percent,
+                                              6, rng, protocol.loo_chunk(72)):
+        blocks.append(idx)
+        rng.randint(2**31 - 1)
+    assert len(trained) == len(blocks) == 12, len(trained)
+    for got, idx in zip(trained, blocks):
+        for i, a in enumerate(got):
+            np.testing.assert_array_equal(a, np.stack([f[i] for f in idx]))
+        lab, _, train, test = got
+        for k in range(len(lab)):
+            assert np.isin(lab[k], train[k]).all()
+            assert not np.isin(test[k], train[k]).any()
+    print("phase 12a: run_gan_loo modality 5, %d %% labels, 1 epoch, 72 "
+          "objects x %d pokes: %d launches of %d items (train %d x %d "
+          "rows each), labeled rows pinned to the draw order; mean error "
+          "%.4f (min %.4f, max %.4f); %d kernel launches in the loader "
+          "(F=%d each); wall %.3f s (training); peak device memory %.3f GB, "
+          "%.3f GB of it allocated before the protocol ran"
+          % (percent, pokes, len(trained), trained[0][0].shape[0],
+             trained[0][2].shape[1], objects[names[0]]["x"].shape[1],
+             errs.mean(), errs.min(), errs.max(), launches,
+             pokes * mel.num_frames(AUDIO_LEN, HOP),
+             wall, peak / 1e9, before[0] / 1e9))
+    return launches
+
+
+def widest_table5_peak(dev, rows=7200):
+    """Phase 12b: the peak memory of the widest Table-5 launch: 6 folds of
+    7,200 rows x 12,032 features (contact mic, 1 s), 1 epoch, on seeded
+    random features made on the card."""
+    width = 128 * mel.num_frames(48000, HOP)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((rows, width), generator=gen, device=dev)
+    y = torch.arange(rows, device=dev) % 6
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    errs = protocol.run_gan_cell(x, y, 100, cfg=gan.GanConfig(epochs=1),
+                                 seed=0, device=dev)
+    wall = time.perf_counter() - t0
+    assert errs.shape == (6,) and np.isfinite(errs).all(), errs
+    print("phase 12b: widest Table-5 launch, 6 folds of %d x %d, 1 epoch: "
+          "peak device memory %.3f GB (%.3f GB allocated before the cell, "
+          "the features %.3f GB of it), wall %.3f s" % (
+              rows, width, torch.cuda.max_memory_allocated(dev) / 1e9,
+              before / 1e9,
+              x.numel() * 4 / 1e9, wall))
+
+
+def smoke_argv(*tables_, extra=()):
+    return ["--tables", *tables_, "--synthetic", "--synthetic-pokes",
+            str(SMOKE_POKES), "--seed", "0", "--strict", "--device", "cuda",
+            *extra]
+
+
+def gan_tables_cli():
+    """Phase 12c: ``gan_main --tables 3 5 6`` and ``--tables 1 -v`` at
+    SMOKE_POKES pokes per object. Returns the paths' kernel launches."""
+    argv = smoke_argv("3", "5", "6", extra=("--epochs", "1"))
+    (lines, wall), launches, _ = driven(lambda: run_cli(tables.gan_main, argv))
+    heads = [l.strip("- ") for l in lines if l.startswith("-" * 25 + " Test")]
+    assert heads == [
+        "Testing generalization with leave-one-object-out validation",
+        "Testing various lengths of contact time in training data",
+        "Testing various lengths of contact time in training data",
+        "Testing performance as quantity of unlabeled data increases"], heads
+    objects = [l for l in lines if "_obj" in l and "Test error:" in l]
+    assert len(objects) == 72 * 2 * 5, len(objects)  # Table 3's ten cells
+    assert count(lines, "Average leave-one-object-out error:", True) == 10
+    assert count(lines, "Length of training data:") == 28   # Table 5
+    assert count(lines, "Percentage of training data unlabeled:") == 14
+    assert count(lines, "Average error:", True) == 28 + 14
+    assert count(lines, "Test error:", True) == 6 * (28 + 14)
+    # the loader's kernel: Table 3 and Table 6 at modality 5, and Table 5's
+    # seven contact-mic durations, one launch per object each
+    assert launches == 72 * (1 + 7 + 1), launches
+    print("phase 12c: gan_main %s: %d lines, Table 3: 10 cells x 72 objects, "
+          "Table 5: 28 cells, Table 6: 14 cells; %d kernel launches; wall "
+          "%.3f s" % (" ".join(argv), len(lines), launches, wall))
+
+    argv_v = smoke_argv("1", extra=("--modalities", "5", "--epochs", "2",
+                                    "-v"))
+    (lines_v, wall_v), launches_v, _ = driven(
+        lambda: run_cli(tables.gan_main, argv_v))
+    epoch_lines = [l for l in lines_v if l.startswith("Epoch ")]
+    assert len(epoch_lines) == 7 * 6 * 2, len(epoch_lines)
+    assert count(lines_v, "Test error:", True) == 7 * 6 * 2  # -v and folds
+    assert count(lines_v, "Processing ", True) == 6
+    assert launches_v == 72, launches_v
+    print("phase 12c: gan_main %s: %d epoch lines, e.g. %r; %d kernel "
+          "launches; wall %.3f s" % (" ".join(argv_v), len(epoch_lines),
+                                     epoch_lines[-1], launches_v, wall_v))
+    return launches + launches_v
+
+
+def mlp_phase(ds, epochs=100, percent=50):
+    """Phase 13: the MLP cell against the recorded one, then its step."""
+    cfg = mlp.MlpConfig(epochs=epochs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    errs = mlp.run_mlp_cell(ds, percentlabeled=percent, cfg=cfg, seed=0)
+    wall = time.perf_counter() - t0
+    n_lab = 6 * int(10 * percent)
+    updates = 6 * epochs * (n_lab // cfg.batch_size)
+    hold_to_reference(
+        "phase 13: MLP modality 5, %d %% labels, %d epochs, seed 0 vs %s"
+        % (percent, epochs, NN_REFERENCE.relative_to(ROOT)), errs,
+        reference_errors(NN_REFERENCE, "nn", 2, percent), FOLD_DELTA,
+        MEAN_DELTA)
+    print("phase 13: %d updates (6 folds x %d epochs x %d batches) in %.3f s: "
+          "%.1f updates/s" % (updates, epochs, n_lab // cfg.batch_size, wall,
+                              updates / wall))
+
+    lab, train = fold_tensors(ds, percent, 3)[::2]
+    x_lab, = gan.scaled_rows(ds.X, train, lab)
+    generator = rng_util.make_generator(0, ds.X.device)
+    state = mlp.init_state(generator, ds.X.shape[1], cfg, 6)
+    perm, noise = mlp.draw_epoch(generator, 6, x_lab.shape[1], ds.X.shape[1],
+                                 cfg)
+    rows = torch.arange(6, device=ds.X.device)[:, None, None]
+    xb = x_lab[rows, perm].transpose(0, 1).contiguous()
+    yb = torch.nn.functional.one_hot(ds.y[lab], 6).float()[rows, perm]
+    yb = yb.transpose(0, 1).contiguous()
+    nb = perm.shape[1]
+
+    def step(b):
+        nonlocal state
+        state, _ = mlp.train_step(state, xb[b % nb], yb[b % nb],
+                                  [a[b % nb] for a in noise], cfg=cfg)
+
+    step_ms, busy, per_step, ops = time_steps(step)
+    print("phase 13: MLP step (6 folds, batch 20, D=%d): median %.4f ms of 60 "
+          "(CUDA events; %.1f updates/s); device time %s per step over %d "
+          "steps (torch.profiler): device busy %.1f%% of the step; %.1f "
+          "device operations per step" % (
+              ds.X.shape[1], step_ms, 6e3 / step_ms, fmt_ms(busy),
+              PROFILE_STEPS, 100 * busy / step_ms, per_step))
+    print_top_ops("phase 13", ops, 6)
+    return wall
+
+
+def svm_phase(x, y):
+    """Phase 14: the SVM cell against the recorded one (libsvm), then the
+    CLI. Returns the CLI's kernel launches."""
+    timings = {}
+    errs = svm.run_svm_cell(x, y, 100, seed=0, timings=timings,
+                            device=x.device)
+    hold_to_reference(
+        "phase 14: SVM modality 5, 100 %% labels, seed 0, native SMO vs %s "
+        "(libsvm)" % SVM_REFERENCE.relative_to(ROOT), errs,
+        reference_errors(SVM_REFERENCE, "svm", 2, 100), SVM_FOLD_DELTA, None)
+    gen = torch.Generator(device=x.device).manual_seed(0)
+    n_test = len(x) // 6
+    a = torch.randn((6, len(x) - n_test, x.shape[1]), generator=gen,
+                    device=x.device)
+    b = torch.randn((6, n_test, x.shape[1]), generator=gen, device=x.device)
+    gram_ms = cuda_ms(lambda: (svm.rbf_kernel(a, a, 1.0 / x.shape[1]),
+                               svm.rbf_kernel(b, a, 1.0 / x.shape[1])),
+                      runs=5, warmup=1)
+    print("phase 14: Gram matrices of the 6 folds (6 x %d^2 and 6 x %d x %d "
+          "at D=%d) %.4f ms on the card (CUDA events); in the cell %.3f s "
+          "with the host copies; SMO on the host %.3f s (15 pairs x 6 folds)"
+          % (a.shape[1], n_test, a.shape[1], x.shape[1], gram_ms,
+             timings["gram_s"], timings["solve_s"]))
+    del a, b
+    argv = smoke_argv("2", "4", extra=("--deriv",))
+    (lines, wall), launches, _ = driven(lambda: run_cli(tables.svm_main, argv))
+    assert count(lines, "Average error:", True) == 2 * 7, lines[:20]
+    assert count(lines, "Average leave-one-object-out error:", True) == 10
+    assert len([l for l in lines if "_obj" in l]) == 72 * 10
+    assert launches == 72 * 2, launches  # modality 5 in Tables 2 and 4
+    print("phase 14: svm_main %s: %d lines, %d kernel launches, wall %.3f s"
+          % (" ".join(argv), len(lines), launches, wall))
+    return launches
+
+
+def nn_cli():
+    """Phase 15: ``nn_main --tables 2 4``. Returns its kernel launches."""
+    argv = smoke_argv("2", "4", extra=("--epochs", "1"))
+    (lines, wall), launches, _ = driven(lambda: run_cli(tables.nn_main, argv))
+    assert count(lines, "Average error:", True) == 2 * 7, lines[:20]
+    assert count(lines, "Average leave-one-object-out error:", True) == 10
+    errs = [float(l.split("Test error:")[1].split()[0]) for l in lines
+            if "_obj" in l]
+    assert len(errs) == 72 * 10 and all(0 <= e <= 1 for e in errs)
+    assert launches == 72 * 2, launches
+    print("phase 15: nn_main %s: %d lines, %d kernel launches, wall %.3f s"
+          % (" ".join(argv), len(lines), launches, wall))
+    return launches
 
 
 def main():
@@ -662,7 +1077,7 @@ def main():
             "" if busy is None else " (%.1f%% of the request)"
             % (100 * busy / ms)))
 
-    timing = {}
+    timing, bound = {}, {}
     for n, audio_len in ((1, AUDIO_LEN), (6, AUDIO_LEN), (72, AUDIO_LEN),
                          (512, 48000)):
         audio = torch.from_numpy(np.random.RandomState(2).randn(
@@ -670,32 +1085,41 @@ def main():
         t = mel.num_frames(audio_len, HOP)
         padded = mel.reflect_pad(audio, N_FFT).contiguous()
         frames = padded.unfold(-1, N_FFT, HOP).reshape(-1, N_FFT)
-        kernel_ms, plain_ms = [], []
+        kernel_ms, plain_ms, lib_ms = [], [], []
         for _ in range(2):  # in turns: plain, kernel, kernel, plain
             plain_ms.append(cuda_ms(
                 lambda: mel_cuda.mel_power_reference(frames)))
             kernel_ms.append(cuda_ms(
                 lambda: mel_cuda.mel_power_framed(padded, t, HOP)))
+            lib_ms.append(cuda_ms(lambda: stft_mel_power(audio)))
             kernel_ms.append(cuda_ms(
                 lambda: mel_cuda.mel_power_framed(padded, t, HOP)))
             plain_ms.append(cuda_ms(
                 lambda: mel_cuda.mel_power_reference(frames)))
         f = n * t
-        timing[f] = (statistics.median(kernel_ms), statistics.median(plain_ms))
+        bound[f] = mel_bound(n, padded.shape[1], f)
+        timing[f] = (statistics.median(kernel_ms), statistics.median(plain_ms),
+                     statistics.median(lib_ms))
         gflop = 2 * 2 * N_FFT * (N_FFT // 2 + 1) * f / 1e9
         print("mel_power F=%d %s: kernel %.4f ms (%.1f TFLOP/s), plain "
-              "%.4f ms; runs %s / %s" % (
-                  f, mel_cuda.describe(mel_cuda._layout(f, sms), f),
-                  timing[f][0],
-                  gflop / timing[f][0], timing[f][1],
-                  ["%.4f" % v for v in kernel_ms],
-                  ["%.4f" % v for v in plain_ms]))
+              "%.4f ms, cuFFT route %.4f ms; runs %s / %s / %s; bound %.4f ms "
+              "(%s: kernel at %.2f%% of it, cuFFT route at %.2f%%), "
+              "algorithm bound (DFT as a 3xTF32 GEMM) %.4f ms (kernel at "
+              "%.1f%%)"
+              % (f, mel_cuda.describe(mel_cuda._layout(f, sms), f),
+                 timing[f][0], gflop / timing[f][0], timing[f][1],
+                 timing[f][2], ["%.4f" % v for v in kernel_ms],
+                 ["%.4f" % v for v in plain_ms], ["%.4f" % v for v in lib_ms],
+                 bound[f][0], bound[f][1], 100 * bound[f][0] / timing[f][0],
+                 100 * bound[f][0] / timing[f][2], bound[f][2],
+                 100 * bound[f][2] / timing[f][0]))
         print("mel_power F=%d device time: kernel %s (row centers, DFT "
-              "kernel, bin-group sum), plain %s" % (
+              "kernel, bin-group sum), plain %s, cuFFT route %s" % (
                   f, fmt_ms(device_ms(
                       lambda: mel_cuda.mel_power_framed(padded, t, HOP))),
                   fmt_ms(device_ms(
-                      lambda: mel_cuda.mel_power_reference(frames)))))
+                      lambda: mel_cuda.mel_power_reference(frames))),
+                  fmt_ms(device_ms(lambda: stft_mel_power(audio)))))
     f_main = 72 * mel.num_frames(AUDIO_LEN, HOP)
 
     # -- the training path -------------------------------------------------------
@@ -717,8 +1141,26 @@ def main():
     training_kernel_times(contact)
     step_times(ds, cell)
     t_phase["10"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
+
+    # -- this slice: the tables, the baselines ---------------------------------
+    db_err = max(db_err, table5_shapes(dev, sms))
+    t_phase["11"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
+    table_launches = loo_full_scale(dev)  # the loader's memo still holds
+    widest_table5_peak(dev)
+    table_launches += gan_tables_cli()
+    t_phase["12"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
+    mlp_phase(ds)
+    t_phase["13"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
+    table_launches += svm_phase(x, y)
+    t_phase["14"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
+    table_launches += nn_cli()
+    t_phase["15"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
     print("phase wall times: %s s" % ", ".join(
         "%s %.1f" % kv for kv in t_phase.items()))
+    total = launches + train_launches + fit_launches + table_launches
+    print("kernel launches on the driven paths: serving %d, training "
+          "(phases 6-7) %d, phase 9 %d, phases 12-15 %d: %d" % (
+              launches, train_launches, fit_launches, table_launches, total))
 
     print(gpu_line())
     print(json.dumps({"kernels": [{
@@ -726,10 +1168,13 @@ def main():
         "route": "cuda",
         "source": "mrgan_tpu_torch/csrc/mel_power.cu",
         "replaces": "mrgan_tpu/ops/mel_pallas.py:79",
-        "launches": launches + train_launches + fit_launches,
+        "launches": total,
         "max_abs_err": db_err,
         "ms": timing[f_main][0],
         "plain_ms": timing[f_main][1],
+        "bound_ms": bound[f_main][0],
+        "bound_by": bound[f_main][1],
+        "library_ms": timing[f_main][2],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,12 +4,16 @@ The JAX package ``mrgan_tpu`` stays the reference; every module here keeps
 the name of the module it ports, so each counterpart is easy to find, and
 the CPU tests hold each port against its JAX original on the same inputs.
 
-Today the port covers the material-classifier serving slice: impact
-windowing and resampling (``ops.resample``, ``data.preprocess``), the log-mel
-frontend with its hand-written CUDA kernel (``ops.mel``, ``ops.mel_cuda``,
+The port covers the material-classifier serving slice: impact windowing
+and resampling (``ops.resample``, ``data.preprocess``), the log-mel frontend
+with its hand-written CUDA kernel (``ops.mel``, ``ops.mel_cuda``,
 ``csrc/mel_power.cu``), modality assembly and scaling (``ops.features``,
 ``ops.scaler``), the eval-mode discriminator (``models.nets``), pickled-numpy
-checkpoints (``utils.params_io``) and ``serve.MaterialClassifier``.
+checkpoints (``utils.params_io``) and ``serve.MaterialClassifier``; and the
+paper's tables: the semi-supervised GAN (``train.gan``, ``train.protocol``),
+the MLP and SVM baselines (``train.mlp``, ``train.svm`` with the in-tree SMO
+of ``csrc/svm_smo.cpp``), the loader (``data.mreo``) and the table CLIs
+(``cli.tables``).
 
 Nothing here imports JAX, scikit-learn, JAX's checkpoint library or the
 JAX package: the machine with the card has none of them.

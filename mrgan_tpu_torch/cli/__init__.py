@@ -1,3 +1,4 @@
 """Command-line entry points of the port: ``python -m
-mrgan_tpu_torch.cli.tables`` (the ``mr-gan-torch`` script), the Table-1 GAN
-sweep of mr_gan.py."""
+mrgan_tpu_torch.cli.tables [gan|nn|svm]`` (the ``mr-gan-torch``,
+``mr-nn-torch`` and ``mr-svm-torch`` scripts), the table sweeps of
+mr_gan.py, mr_nn.py and mr_svm.py."""

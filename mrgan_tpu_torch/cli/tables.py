@@ -1,22 +1,30 @@
-"""Table sweeps: the GAN's Table 1 (mr_gan.py:236-262).
+"""Table sweeps: the GAN's Tables 1, 3, 5 and 6 (mr_gan.py:236-342), the
+MLP baseline's Tables 2 and 4 (mr_nn.py:121-169) and the SVM baseline's
+(mr_svm.py:118-166).
 
-Port of ``mrgan_tpu/cli/tables.py`` (``build_parser``, ``Ctx``,
-``gan_table1``, ``gan_main``). It takes the same flags plus ``--device``
-and prints the same lines as ``python mr_gan.py --tables 1``:
+Port of ``mrgan_tpu/cli/tables.py``. It takes the same flags plus
+``--device`` and prints the same lines as ``python mr_gan.py``,
+``mr_nn.py`` and ``mr_svm.py``:
 
-    python -m mrgan_tpu_torch.cli.tables --tables 1 --synthetic --seed 0 \\
-        --modalities 5 --device cuda
+    python -m mrgan_tpu_torch.cli.tables --tables 1 3 5 6 --synthetic \\
+        --seed 0 --device cuda
+    python -m mrgan_tpu_torch.cli.tables nn --tables 2 4 --device cuda
+    python -m mrgan_tpu_torch.cli.tables svm --tables 2 4 --deriv
 
-Every fold of a cell trains in one launch on the one device; ``--no-mesh``
-is accepted and changes nothing. Not ported yet: Tables 3, 5 and 6 and the
-per-epoch lines of ``-v`` (``ROADMAP.md`` A8), the MLP and SVM tables
-(A9). Two faults of the original are not copied (A7): the provenance stamp
-says whether the loader really read synthetic data, and a
-``FileNotFoundError`` (missing pickles under MRGAN_REQUIRE_PROCESSED=1)
-propagates instead of being recorded as a failed cell.
+Every fold of a cell trains in one launch on the one device, and a
+leave-one-object-out block of 6 objects too; ``--no-mesh`` is accepted and
+changes nothing. ``--pad-min`` defaults to 0: the JAX package's 1280 works
+around a TPU fault (``docs/NARROW_FAULT.md``) and the padding is inert. The
+SVM's dual solver defaults to the in-tree SMO (``--svm-solver native``);
+``libsvm`` needs scikit-learn. Two faults of the original are not copied:
+the provenance stamp says whether the loader really read synthetic data,
+and a ``FileNotFoundError`` (missing pickles under
+MRGAN_REQUIRE_PROCESSED=1) propagates instead of being recorded as a
+failed cell.
 """
 
 import argparse
+import sys
 import time
 
 import numpy as np
@@ -24,15 +32,20 @@ import torch
 
 from .. import MODALITY_NAMES
 from ..data import mreo
-from ..train import gan, protocol
+from ..train import gan, mlp, protocol, svm
 from ..utils import checkpoint as ckpt_lib
 from ..utils import device as device_lib
 from ..utils import metrics as M
 from ..utils import stamp as stamp_lib
 
 PERCENTS_KFOLD = [1, 2, 4, 8, 16, 50, 100]   # mr_gan.py:251
+PERCENTS_LOO = [1, 4, 16, 50, 100]            # mr_gan.py:271
+FT_TIMES = [4, 3, 2, 1, 0.5, 0.2, 0.1]        # mr_gan.py:290
+C_TIMES = [1, 0.7, 0.5, 0.3, 0.2, 0.1, 0.05]  # mr_gan.py:309
+UNLABELED_GRID = [0, 4, 8, 16, 32, 64, 96]    # mr_gan.py:330 (96 = 100-4)
 T1_MODALITIES = tuple(range(len(MODALITY_NAMES)))  # mr_gan.py:248
-NOT_PORTED_TABLES = ("3", "5", "6")
+PAIR_MODALITIES = (2, 5)                      # F+T, F+T+C (mr_gan.py:267)
+T5_FT_MODALITIES = (0, 1, 2)                  # mr_gan.py:289
 
 
 def build_parser(description):
@@ -60,9 +73,12 @@ def build_parser(description):
     parser.add_argument("--modalities", type=int, nargs="+", default=None,
                         help="Subset of modality indices for the sweeps "
                              "(default: each table's reference grid)")
-    parser.add_argument("--pad-min", type=int, default=1280,
-                        help="Padded-width bucket of the duration sweep "
-                             "(table 5, not ported yet)")
+    parser.add_argument("--pad-min", type=int, default=0,
+                        help="Zero-pad narrow feature widths up to this "
+                             "width in the duration sweep (table 5). The "
+                             "padding is inert; the JAX package's default "
+                             "of 1280 works around a TPU fault "
+                             "(docs/NARROW_FAULT.md), so the port's is 0")
     parser.add_argument("--strict", action="store_true",
                         help="Propagate every cell/build failure instead of "
                              "recording it and continuing the sweep")
@@ -79,11 +95,14 @@ PROGRAMMING_ERRORS = (TypeError, ValueError, KeyError, AttributeError,
 
 
 class Ctx:
-    """Shared sweep context: device, dataset access, checkpoint, metrics."""
+    """Shared sweep context: device, dataset access, checkpoint, metrics.
+    ``deriv``: every dataset gets first-derivative traces (``svm_main
+    --deriv``)."""
 
-    def __init__(self, args, model_name):
+    def __init__(self, args, model_name, deriv=False):
         self.args = args
         self.model = model_name
+        self.deriv = deriv
         self.device = device_lib.resolve(args.device)
         if self.device.type == "cuda":
             device_lib.set_fp32_policy()
@@ -108,6 +127,7 @@ class Ctx:
                 "pokes_per_object": self.args.synthetic_pokes
             },
             device=self.device,
+            deriv=self.deriv,
             **kw,
         )
 
@@ -183,12 +203,115 @@ def gan_table1(ctx):
             M.subheader("Percentage of training data labeled: %d%%" % percent)
             errors = ctx.cell(
                 lambda: protocol.run_gan_cell(
-                    ds, percentlabeled=percent, cfg=cfg, seed=ctx.seed),
+                    ds, percentlabeled=percent, cfg=cfg, seed=ctx.seed,
+                    verbose=ctx.args.verbose),
                 table=1, modality=modality, percent=percent,
             )
             for e in errors:
                 M.fold_result(e)
             M.cell_average(errors)
+
+
+def gan_table3(ctx):
+    cfg = gan.GanConfig(epochs=ctx.args.epochs)
+    M.header("Testing generalization with leave-one-object-out validation")
+    for modality in (ctx.args.modalities or PAIR_MODALITIES):
+        M.modality_header(MODALITY_NAMES[modality])
+        objects = ctx.build(
+            lambda m=modality: ctx.dataset(modalities=m,
+                                           leave_object_out=True),
+            table=3, modality=modality,
+        )
+        if objects is None:
+            continue
+        for percent in PERCENTS_LOO:
+            M.subheader("Percentage of training data labeled: %d%%" % percent)
+
+            def run():
+                names, errs = protocol.run_gan_loo(
+                    objects, percent, cfg=cfg, seed=ctx.seed,
+                    on_result=lambda n, e: M.fold_result(e, prefix=n),
+                    device=ctx.device,
+                )
+                return errs
+
+            errors = ctx.cell(run, table=3, modality=modality, percent=percent)
+            M.cell_average(errors, loo=True)
+
+
+def gan_table5(ctx):
+    cfg = gan.GanConfig(epochs=ctx.args.epochs, pad_min=ctx.args.pad_min)
+    M.header("Testing various lengths of contact time in training data")
+    # Each duration is its own dataset, built INSIDE the guarded cell: a
+    # device fault while building skips the cell instead of the sweep, and
+    # checkpointed cells skip the build entirely.
+
+    def run_cell(errors_fn, **key):
+        errors = ctx.cell(errors_fn, table=5, **key)
+        for e in errors:
+            M.fold_result(e)
+        M.cell_average(errors)
+
+    for modality in (ctx.args.modalities or T5_FT_MODALITIES):
+        M.modality_header(MODALITY_NAMES[modality])
+        for ft_time in FT_TIMES:
+            M.subheader("Length of training data: %.1fs" % ft_time)
+
+            def run(modality=modality, ft_time=ft_time):
+                x, y = ctx.dataset(modalities=modality,
+                                   forcetemp_time=ft_time)
+                return protocol.run_gan_cell(x, y, 100, cfg=cfg,
+                                             seed=ctx.seed, device=ctx.device)
+
+            run_cell(run, modality=modality, ft_time=ft_time)
+
+    M.header("Testing various lengths of contact time in training data")
+    M.modality_header(MODALITY_NAMES[3])
+    for c_time in C_TIMES:
+        M.subheader("Length of training data: %.1fs" % c_time)
+
+        def run(c_time=c_time):
+            x, y = ctx.dataset(modalities=3, contactmic_time=c_time)
+            return protocol.run_gan_cell(x, y, 100, cfg=cfg, seed=ctx.seed,
+                                         device=ctx.device)
+
+        run_cell(run, modality=3, c_time=c_time)
+
+
+def gan_table6(ctx):
+    cfg = gan.GanConfig(epochs=ctx.args.epochs)
+    M.header("Testing performance as quantity of unlabeled data increases")
+    for modality in (ctx.args.modalities or PAIR_MODALITIES):
+        M.modality_header(MODALITY_NAMES[modality])
+        ds = ctx.build(
+            lambda m=modality: protocol.DeviceDataset(
+                *ctx.dataset(modalities=m), cfg.pad_multiple,
+                device=ctx.device),
+            table=6, modality=modality,
+        )
+        if ds is None:
+            continue
+        for percentlabeled in [4]:
+            M.subheader(
+                "Percentage of training data labeled: %d%%" % percentlabeled
+            )
+            for percentunlabeled in UNLABELED_GRID:
+                M.subheader(
+                    "Percentage of training data unlabeled: %d%%"
+                    % percentunlabeled
+                )
+                errors = ctx.cell(
+                    lambda: protocol.run_gan_cell(
+                        ds, percentlabeled=percentlabeled,
+                        percentunlabeled=percentunlabeled, cfg=cfg,
+                        seed=ctx.seed,
+                    ),
+                    table=6, modality=modality, percent=percentlabeled,
+                    percent_unlabeled=percentunlabeled,
+                )
+                for e in errors:
+                    M.fold_result(e)
+                M.cell_average(errors)
 
 
 def gan_main(argv=None):
@@ -197,19 +320,127 @@ def gan_main(argv=None):
         "haptic data."
     )
     args = parser.parse_args(argv)
-    missing = [t for t in args.tables if t in NOT_PORTED_TABLES]
-    if missing:
-        raise NotImplementedError(
-            "--tables %s: the port runs Table 1 only; Tables 3, 5 and 6 are "
-            "ROADMAP.md A8" % " ".join(missing))
-    if args.verbose:
-        raise NotImplementedError(
-            "-v (per-epoch lines, track_epoch_metrics) is ROADMAP.md A8")
     ctx = Ctx(args, "gan")
     if "1" in args.tables:
         gan_table1(ctx)
+    if "3" in args.tables:
+        gan_table3(ctx)
+    if "5" in args.tables:
+        gan_table5(ctx)
+    if "6" in args.tables:
+        gan_table6(ctx)
     ctx.finish()
 
 
+# ---------------------------------------------------------------------------
+# MLP tables (mr_nn.py) and SVM tables (mr_svm.py)
+# ---------------------------------------------------------------------------
+
+def _baseline_table2(ctx, run_cell):
+    M.header("Testing various amounts of labeled training data")
+    for modality in (ctx.args.modalities or PAIR_MODALITIES):
+        M.modality_header(MODALITY_NAMES[modality])
+        built = ctx.build(lambda m=modality: ctx.dataset(modalities=m),
+                          table=2, modality=modality)
+        if built is None:
+            continue
+        x, y = built
+        for percent in PERCENTS_KFOLD:
+            M.subheader("Percentage of training data labeled: %d%%" % percent)
+            errors = ctx.cell(
+                lambda: run_cell(x, y, percent),
+                table=2, modality=modality, percent=percent,
+            )
+            # (reference comments out the per-fold prints here, mr_nn.py:144)
+            M.cell_average(errors)
+
+
+def _baseline_table4(ctx, run_loo):
+    M.header("Testing generalization with leave-one-object-out validation")
+    for modality in (ctx.args.modalities or PAIR_MODALITIES):
+        M.modality_header(MODALITY_NAMES[modality])
+        objects = ctx.build(
+            lambda m=modality: ctx.dataset(modalities=m,
+                                           leave_object_out=True),
+            table=4, modality=modality,
+        )
+        if objects is None:
+            continue
+        for percent in PERCENTS_LOO:
+            M.subheader("Percentage of training data labeled: %d%%" % percent)
+
+            def run():
+                names, errs = run_loo(objects, percent)
+                for n, e in zip(names, errs):
+                    M.fold_result(e, prefix=n)
+                return errs
+
+            errors = ctx.cell(run, table=4, modality=modality, percent=percent)
+            M.cell_average(errors, loo=True)
+
+
+def nn_main(argv=None):
+    parser = build_parser("Supervised MLP baseline for material recognition.")
+    args = parser.parse_args(argv)
+    ctx = Ctx(args, "nn")
+    cfg = mlp.MlpConfig(epochs=args.epochs)
+
+    def run_cell(x, y, percent):
+        return mlp.run_mlp_cell(x, y, percent, cfg=cfg, seed=ctx.seed,
+                                device=ctx.device)
+
+    def run_loo(objects, percent):
+        return mlp.run_mlp_loo(objects, percent, cfg=cfg, seed=ctx.seed,
+                               device=ctx.device)
+
+    if "2" in args.tables:
+        _baseline_table2(ctx, run_cell)
+    if "4" in args.tables:
+        _baseline_table4(ctx, run_loo)
+    ctx.finish()
+
+
+def svm_main(argv=None):
+    parser = build_parser("RBF-SVM baseline for material recognition.")
+    parser.add_argument("--deriv", action="store_true",
+                        help="First-derivative features (mr_svm.py:41-44)")
+    parser.add_argument("--svm-solver", choices=svm.SOLVERS,
+                        default="native",
+                        help="Dual solver: native (default; the in-tree C++ "
+                             "SMO, mrgan_tpu_torch/csrc/svm_smo.cpp) or "
+                             "libsvm (the reference's, through "
+                             "scikit-learn, which must be installed)")
+    args = parser.parse_args(argv)
+    cfg = svm.SvmConfig(solver=args.svm_solver)
+    svm.make_svc(cfg)  # a missing solver fails before any work
+    ctx = Ctx(args, "svm", deriv=args.deriv)
+
+    def run_cell(x, y, percent):
+        return svm.run_svm_cell(x, y, percent, cfg=cfg, seed=ctx.seed,
+                                device=ctx.device)
+
+    def run_loo(objects, percent):
+        return svm.run_svm_loo(objects, percent, cfg=cfg, seed=ctx.seed,
+                               device=ctx.device)
+
+    if "2" in args.tables:
+        _baseline_table2(ctx, run_cell)
+    if "4" in args.tables:
+        _baseline_table4(ctx, run_loo)
+    ctx.finish()
+
+
+MAINS = {"gan": gan_main, "nn": nn_main, "svm": svm_main}
+
+
+def main(argv=None):
+    """``python -m mrgan_tpu_torch.cli.tables [gan|nn|svm] ...``: the
+    GAN's tables by default, the MLP's or the SVM's with ``nn`` / ``svm``
+    first."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    model = argv.pop(0) if argv and argv[0] in MAINS else "gan"
+    MAINS[model](argv)
+
+
 if __name__ == "__main__":
-    gan_main()
+    main()

@@ -7,10 +7,11 @@ and the ``MRGAN_REQUIRE_PROCESSED`` guard. Every object's traces go to the
 device; its contact audio goes through ``ops.mel.frontend_logmel`` there
 (the CUDA kernel for a CUDA device, one launch per object of up to
 ``batch_size`` pokes), and ``ops.features.assemble`` joins the modalities.
-``(X, y)`` come back as tensors on the device, with no host round trip.
-
-Not ported yet: ``leave_object_out`` (Table 3) and ``deriv`` (the SVM
-baseline), ``ROADMAP.md`` A8 and A9.
+``(X, y)`` come back as tensors on the device, with no host round trip, or
+with ``leave_object_out`` a ``{object name: {"x", "y"}}`` dict in the JAX
+package's key order (Tables 3 and 4). ``deriv`` (the SVM baseline's
+``--deriv``) puts the force and temperature traces through
+``ops.resample.first_deriv`` before they are assembled.
 """
 
 import os
@@ -22,6 +23,7 @@ import torch
 from .. import MATERIALS
 from ..ops import features as feat_ops
 from ..ops import mel as mel_ops
+from ..ops import resample
 from . import synthetic
 
 PROCESSED_FMT = "processed_0.1sbefore_%s_times_%.2f_%.2f.pkl"
@@ -90,14 +92,17 @@ def _generate_processed_memo(seed, forcetemp_time, contactmic_time,
 
 
 def load_features(modalities=0, forcetemp_time=4, contactmic_time=0.2,
-                  data_dir="data_processed", synthetic_seed=None,
-                  verbose=False, batch_size=512, synthetic_kwargs=None, *,
-                  device):
-    """dataset() equivalent: (X (N, D) float32, y (N,) int64) on ``device``.
-    If the processed pickles are missing (or ``synthetic_seed`` is given), a
-    synthetic MREO set is generated instead; MRGAN_REQUIRE_PROCESSED=1
-    makes missing pickles an error instead.
+                  leave_object_out=False, data_dir="data_processed",
+                  synthetic_seed=None, verbose=False, deriv=False,
+                  batch_size=512, synthetic_kwargs=None, *, device):
+    """dataset() equivalent: (X (N, D) float32, y (N,) int64) on ``device``,
+    or with ``leave_object_out`` ``{object name: {"x", "y"}}`` of such
+    tensors, one entry per object. If the processed pickles are missing (or
+    ``synthetic_seed`` is given), a synthetic MREO set is generated instead;
+    MRGAN_REQUIRE_PROCESSED=1 makes missing pickles an error instead.
 
+    ``deriv``: mr_svm.py's first-derivative option (mr_svm.py:41-44),
+    applied to the force and temperature traces only.
     ``synthetic_kwargs``: extra args for synthetic.generate_processed (e.g.
     pokes_per_object for small datasets)."""
     device = torch.device(device)
@@ -124,6 +129,7 @@ def load_features(modalities=0, forcetemp_time=4, contactmic_time=0.2,
     def on_device(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
 
+    objects = {}
     xs, ys = [], []
     for m, material in enumerate(MATERIALS):
         if verbose:
@@ -133,23 +139,36 @@ def load_features(modalities=0, forcetemp_time=4, contactmic_time=0.2,
             if use_synth
             else _load_material(data_dir, material, forcetemp_time, contactmic_time)
         )
-        for obj_data in all_data.values():
+        for obj_name, obj_data in all_data.items():
             traces = {k: on_device(obj_data[k])
                       for k in ("temperature", "force0", "force1")
                       if k in obj_data}
             n = len(traces["temperature"])
+            if deriv:
+                f_time = on_device(obj_data["forceTime"])
+                t_time = on_device(obj_data["temperatureTime"])
+                for k, times in (("force0", f_time), ("force1", f_time),
+                                 ("temperature", t_time)):
+                    traces[k] = resample.first_deriv(traces[k], times)
             logmel = None
             if modalities in feat_ops.NEEDS_AUDIO:
                 contact = on_device(obj_data["contact"])
                 logmel = torch.cat([
                     mel_ops.frontend_logmel(contact[s : s + batch_size])
                     for s in range(0, n, batch_size)])
-            xs.append(feat_ops.assemble(
+            x = feat_ops.assemble(
                 modalities, temperature=traces.get("temperature"),
                 force0=traces.get("force0"), force1=traces.get("force1"),
-                logmel=logmel))
-            ys.append(torch.full((n,), m, dtype=torch.int64, device=device))
+                logmel=logmel)
+            y = torch.full((n,), m, dtype=torch.int64, device=device)
+            if leave_object_out:
+                objects[obj_name] = {"x": x, "y": y}
+            else:
+                xs.append(x)
+                ys.append(y)
 
+    if leave_object_out:
+        return objects
     x = torch.cat(xs)
     y = torch.cat(ys)
     if verbose:

@@ -46,7 +46,7 @@ def _batched_window_centered(times, values, impacts, half, num_out, device):
 
 
 def process_sequences(raw, duration, contact_len, streams=None,
-                      out_dtype=np.float32, device="cpu"):
+                      out_dtype=np.float32, *, device):
     """Process one raw batch dict (the per-file schema of
     collectdataPoke.py's saves) into the processed per-object schema.
 

@@ -13,6 +13,9 @@ reference:
   GN(0.5) -> D500 relu -> GN(0.5) -> D250 relu -> GN(0.5) -> D250 relu ->
   GN(0.5) -> mid = D250 relu -> D(num_classes), with ``mid`` returned beside
   the logits for the feature-matching loss.
+- supervised MLP baseline (mr_nn.py:101-113): GN(0.3) -> D1000 relu ->
+  GN(0.5) -> D500 relu -> GN(0.5) -> D250 relu -> GN(0.5) -> D250 relu ->
+  GN(0.5) -> D250 relu -> D(num_classes).
 
 The functional forms take parameter dicts in the JAX package's layout
 ({"d0": {"w": (in, out), "b": (out,)}, ...}) with a leading fold axis on
@@ -137,6 +140,55 @@ def discriminator_apply(params, x, noise=None, in_mask=None,
             x = x + NOISE_STDDEVS[i + 1] * noise[i + 1]
     mid = torch.relu(dense(params["mid"], x))
     return dense(params["out"], mid), mid
+
+
+# --------------------------------------------------------------------------
+# Supervised MLP baseline
+# --------------------------------------------------------------------------
+
+MLP_WIDTHS = (1000, 500, 250, 250, 250)
+MLP_NOISE_STDDEVS = (0.3, 0.5, 0.5, 0.5, 0.5)  # input + after layers 0-3
+
+
+def mlp_init(generator, in_dim, num_classes, n_folds, widths=MLP_WIDTHS,
+             device=None):
+    """Glorot-initialized {"d0".."d4", "out"} for ``n_folds`` folds."""
+    folds = (n_folds,)
+    params = {}
+    d = in_dim
+    for i, w in enumerate(widths):
+        params["d%d" % i] = dense_init(generator, d, w, device, folds)
+        d = w
+    params["out"] = dense_init(generator, d, num_classes, device, folds)
+    return params
+
+
+def mlp_apply(params, x, noise=None, in_mask=None, widths=MLP_WIDTHS):
+    """(F, B, D) -> (F, B, num_classes) logits. ``noise``: None for eval
+    mode, or the train-mode GaussianNoise draws as five standard-normal
+    tensors shaped like the input and the outputs of layers 0-3 (the last
+    hidden layer has no noise). ``in_mask``: (D,) 0/1, keeps the input
+    noise off padded columns."""
+    # x + s * n as one operation each: the batch-20 step is host-bound
+    if noise is not None:
+        n = noise[0] if in_mask is None else noise[0] * in_mask
+        x = torch.add(x, n, alpha=MLP_NOISE_STDDEVS[0])
+    for i in range(len(widths)):
+        x = torch.relu(dense(params["d%d" % i], x))
+        if noise is not None and i + 1 < len(widths):
+            x = torch.add(x, noise[i + 1], alpha=MLP_NOISE_STDDEVS[i + 1])
+    return dense(params["out"], x)
+
+
+def mlp_from_jax(params, device=None):
+    """The JAX package's MLP tree (numpy, with or without a leading fold
+    axis) -> the port's tensors, fold axis leading."""
+    return tree_from_jax(params, device, np.ndim(params["d0"]["w"]) == 3)
+
+
+def mlp_to_jax(params):
+    """The port's MLP tensors -> numpy, fold axis kept."""
+    return tree_to_jax(params)
 
 
 # --------------------------------------------------------------------------

@@ -127,6 +127,13 @@ def window_resample_centered(t, v, valid, impact_time, half, num_out):
     return _resample(t, v, valid, t_start, t_end, num_out, last)
 
 
+def first_deriv(x, t):
+    """First time-derivative feature (mr_svm.py:15-20): forward differences
+    over the last axis, the last point repeating the final difference."""
+    dx = torch.diff(x, dim=-1) / torch.diff(t, dim=-1)
+    return torch.cat([dx, dx[..., -1:]], dim=-1)
+
+
 def make_padded(streams, times, dtype=np.float32):
     """Host-side helper: ragged python lists -> padded arrays + masks."""
     n = max(len(s) for s in streams)

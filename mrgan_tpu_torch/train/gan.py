@@ -31,9 +31,6 @@ from ..ops import scaler
 from ..utils import tree
 from . import optim, schedule
 
-ROADMAP_A8 = "ROADMAP.md A8"
-
-
 @dataclasses.dataclass(frozen=True)
 class GanConfig:
     """The JAX package's ``GanConfig`` fields and defaults, except:
@@ -45,7 +42,6 @@ class GanConfig:
       were bitwise free on the TPU's MXU but change the numbers on the
       H100 (``ROADMAP.md`` A3).
     - ``flat_small_carry`` is gone: torch has no scan carry to lay out.
-    - ``track_epoch_metrics`` raises ``NotImplementedError`` (A8).
     """
 
     noise_size: int = 100          # mr_gan.py:77
@@ -63,10 +59,6 @@ class GanConfig:
     matmul_weight_dtype: str = "float32"
 
     def __post_init__(self):
-        if self.track_epoch_metrics:
-            raise NotImplementedError(
-                "per-epoch metrics (track_epoch_metrics, -v) are not ported "
-                "yet: " + ROADMAP_A8)
         if self.matmul_weight_dtype != "float32":
             raise ValueError(
                 "matmul_weight_dtype=%r: the port trains with float32 "
@@ -243,6 +235,9 @@ def train_step(state, data, li, ui, u2i, rand, *, cfg, mask=None):
 # Training
 # --------------------------------------------------------------------------
 
+EPOCH_METRICS = ("loss_lab", "loss_unl", "train_err", "test_err")
+
+
 def train_folds(generator, x_labeled, y_labeled, pool, x_test, y_test,
                 n_train, valid_dim=None, cfg=GanConfig(), n_pool_valid=None):
     """Train F folds of one cell from prepared, fold-stacked tensors on the
@@ -252,8 +247,12 @@ def train_folds(generator, x_labeled, y_labeled, pool, x_test, y_test,
     (F, n_pool, D) of which the first ``n_pool_valid`` rows are sampled (all
     when None), ``x_test`` (F, n_test, D), ``y_test`` (F, n_test). The
     initial parameters are glorot draws from ``generator``. Returns (test
-    errors as numpy (F,), {"params": {"gen", "disc"}}): the errors of the
-    final eval-mode discriminator on the test rows."""
+    errors as numpy (F,), aux): the errors of the final eval-mode
+    discriminator on the test rows; aux holds {"params": {"gen", "disc"}}
+    and, with ``cfg.track_epoch_metrics``, numpy (F, epochs) arrays
+    "loss_lab", "loss_unl" and "train_err" (each the mean over the epoch's
+    batches) and "test_err" (an eval-mode test pass after the epoch's last
+    update), as at mrgan_tpu/train/gan.py:306-324."""
     n_folds, n_lab, feat_dim = x_labeled.shape
     if valid_dim is None:
         valid_dim = feat_dim
@@ -263,17 +262,33 @@ def train_folds(generator, x_labeled, y_labeled, pool, x_test, y_test,
     mask = _masks(feat_dim, valid_dim, x_labeled.device)
     state = init_state(init_params(generator, feat_dim, cfg, n_folds), cfg)
     data = {"x_labeled": x_labeled, "y_labeled": y_labeled, "pool": pool}
+    epochs = []  # per epoch: (loss_lab, loss_unl, train_err, test_err), (F,)
     for _ in range(cfg.epochs):
         lab, u1, u2 = epoch_schedule(generator, n_folds, n_lab, n_pool,
                                      n_train, bs)
+        steps = []
         for b in range(nb):
             rand = draw_step(generator, n_folds, bs, feat_dim, cfg)
-            state, _ = train_step(state, data, lab[:, b], u1[:, b], u2[:, b],
-                                  rand, cfg=cfg, mask=mask)
+            state, out = train_step(state, data, lab[:, b], u1[:, b],
+                                    u2[:, b], rand, cfg=cfg, mask=mask)
+            if cfg.track_epoch_metrics:
+                steps.append(out)
+        if cfg.track_epoch_metrics:
+            means = [torch.stack(m).mean(dim=0) for m in zip(*steps)]
+            epochs.append((*means, _test_error(state["disc"], x_test, y_test)))
+    errors = _test_error(state["disc"], x_test, y_test).cpu().numpy()
+    aux = {"params": {"gen": state["gen"], "disc": state["disc"]}}
+    if cfg.track_epoch_metrics:
+        for name, per_epoch in zip(EPOCH_METRICS, zip(*epochs)):
+            aux[name] = torch.stack(per_epoch, dim=1).cpu().numpy()
+    return errors, aux
+
+
+def _test_error(disc, x_test, y_test):
+    """(F,) error rates of the eval-mode discriminator on the test rows."""
     with torch.no_grad():
-        logits, _ = nets.discriminator_apply(state["disc"], x_test)
-        errors = losses.error_rate(logits, y_test).cpu().numpy()
-    return errors, {"params": {"gen": state["gen"], "disc": state["disc"]}}
+        logits, _ = nets.discriminator_apply(disc, x_test)
+        return losses.error_rate(logits, y_test)
 
 
 def pad_pool_indices(pool_idx, train_idx):
@@ -288,20 +303,30 @@ def pad_pool_indices(pool_idx, train_idx):
     return np.concatenate([pool_idx, pad], axis=-1), n_pool
 
 
+def index_tensor(a, device):
+    """(F, n) numpy row indices as an int64 tensor on ``device``."""
+    return torch.as_tensor(np.asarray(a, np.int64), device=device)
+
+
+def scaled_rows(X, train_idx, *idx):
+    """Each fold's scaler fit on its train rows ``X[train_idx]`` on the
+    device, applied to the rows ``X[i]`` of each index tensor ``i`` of
+    ``idx``. Index tensors are (F, n) on X's device; returns a list of
+    (F, n, D) tensors."""
+    mean, inv = scale_stats(X[train_idx])
+    mean, inv = mean.unsqueeze(-2), inv.unsqueeze(-2)
+    return [(X[i] - mean) * inv for i in idx]
+
+
 def scale_folds(X, y, lab_idx, pool_idx, train_idx, test_idx):
     """Fold prep on the device (mrgan_tpu/train/gan.py:355-381): gather each
     fold's train rows, fit the scaler per fold, scale the labeled, pool and
     test rows. Index arrays are (F, n) tensors on X's device. Returns the
     keyword arguments of :func:`train_folds` for the data."""
-    mean, inv = scale_stats(X[train_idx])
-    mean, inv = mean.unsqueeze(-2), inv.unsqueeze(-2)
-
-    def scale(a):
-        return (a - mean) * inv
-
-    return {"x_labeled": scale(X[lab_idx]), "y_labeled": y[lab_idx],
-            "pool": scale(X[pool_idx]), "x_test": scale(X[test_idx]),
-            "y_test": y[test_idx]}
+    x_lab, pool, x_test = scaled_rows(X, train_idx, lab_idx, pool_idx,
+                                      test_idx)
+    return {"x_labeled": x_lab, "y_labeled": y[lab_idx], "pool": pool,
+            "x_test": x_test, "y_test": y[test_idx]}
 
 
 def train_folds_indexed(generator, X, y, lab_idx, pool_idx, train_idx,
@@ -310,18 +335,17 @@ def train_folds_indexed(generator, X, y, lab_idx, pool_idx, train_idx,
 
     ``X`` (N, D) padded features and ``y`` (N,) int64 labels on the device;
     ``lab_idx``/``pool_idx``/``train_idx``/``test_idx``: (F, *) numpy row
-    indices into X. Returns the (F,) test errors as numpy."""
+    indices into X. Returns the (F,) test errors as numpy; with
+    ``cfg.track_epoch_metrics``, (errors, {metric: (F, epochs)})."""
     if valid_dim is None:
         valid_dim = X.shape[-1]
     pool_idx, n_pool_valid = pad_pool_indices(np.asarray(pool_idx),
                                               np.asarray(train_idx))
-
-    def dev(a):
-        return torch.as_tensor(np.asarray(a, np.int64), device=X.device)
-
-    data = scale_folds(X, y, dev(lab_idx), dev(pool_idx), dev(train_idx),
-                       dev(test_idx))
-    errors, _ = train_folds(generator, n_train=np.shape(train_idx)[-1],
-                            valid_dim=valid_dim, cfg=cfg,
-                            n_pool_valid=n_pool_valid, **data)
+    data = scale_folds(X, y, *(index_tensor(a, X.device) for a in
+                               (lab_idx, pool_idx, train_idx, test_idx)))
+    errors, aux = train_folds(generator, n_train=np.shape(train_idx)[-1],
+                              valid_dim=valid_dim, cfg=cfg,
+                              n_pool_valid=n_pool_valid, **data)
+    if cfg.track_epoch_metrics:
+        return errors, {k: aux[k] for k in EPOCH_METRICS}
     return errors

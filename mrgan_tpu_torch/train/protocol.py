@@ -1,15 +1,25 @@
-"""Experiment protocols: folds, labeled subsets, one sweep cell.
+"""Experiment protocols: folds, labeled subsets, sweep cells, leave-one-
+object-out.
 
 Port of ``mrgan_tpu/train/protocol.py`` (``DeviceDataset``,
 ``fold_indices``, ``stratified_splits``, ``run_gan_cell``,
-``run_indexed_folds``). The fold and labeled-row choices are numpy code on
+``run_indexed_folds``, ``run_gan_loo``, ``loo_chunk``,
+``iter_loo_blocks``). The fold and labeled-row choices are numpy code on
 the host, copied so that the same seed picks the same rows as the JAX
-package; ``stratified_splits`` is a numpy copy of scikit-learn's
-``StratifiedKFold(shuffle=True)``, which the machine with the card does not
-have. Training runs every fold of a cell in one launch of the fold-stacked
-trainer (``train.gan``); the JAX package's per-launch byte budget and its
-mesh routes were TPU calibrations and are not ported.
+package; ``stratified_splits`` is
+a numpy copy of scikit-learn's ``StratifiedKFold(shuffle=True)``, which the
+machine with the card does not have. Training runs every fold of a cell in
+one launch of the fold-stacked trainer (``train.gan``); a leave-one-object-
+out block of 6 objects is one launch too. The JAX package's per-launch byte
+budget and its mesh routes were TPU calibrations and are not ported: the
+widest launch (6 Table-5 folds at 12,032 features) fits in 80 GB.
+
+Every entry point that uploads data takes the device as a required keyword:
+nothing falls back to the CPU.
 """
+
+import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -31,6 +41,31 @@ class DeviceDataset:
 
     def __len__(self):
         return len(self.y_host)
+
+
+def as_dataset(x, y, pad_multiple, pad_min, device):
+    """``x`` if it is a DeviceDataset (which holds its labels: ``y`` must
+    then be None), else (x, y) uploaded to ``device``, which must then be
+    given."""
+    if isinstance(x, DeviceDataset):
+        if y is not None:
+            raise TypeError("x is a DeviceDataset, which holds its labels; "
+                            "y must be None (pass the label share by "
+                            "keyword, percentlabeled=...)")
+        return x
+    if device is None:
+        raise ValueError("device= is required when x is not a DeviceDataset "
+                         "(nothing falls back to the CPU)")
+    return DeviceDataset(x, y, pad_multiple, pad_min, device=device)
+
+
+def check_padded_width(ds, cfg):
+    required = gan.pad_dim(ds.valid_dim, cfg.pad_multiple, cfg.pad_min)
+    if ds.X.shape[-1] < required:
+        raise ValueError(
+            "DeviceDataset was built with padded width %d (pad_min=%d) but "
+            "the config requires width >= %d; rebuild the DeviceDataset with "
+            "pad_min=cfg.pad_min" % (ds.X.shape[-1], ds.pad_min, required))
 
 
 def fold_indices(y, train_idx, test_idx, percentlabeled, percentunlabeled,
@@ -86,6 +121,27 @@ def stratified_splits(y, n_splits=6, seed=None):
             for i in range(n_splits)]
 
 
+# --------------------------------------------------------------------------
+# GAN cells
+# --------------------------------------------------------------------------
+
+EPOCH_LINE = ("Epoch %d, time = %ds, loss labeled = %.4f, "
+              "loss unlabeled = %.4f, train error = %.4f, test error = %.4f")
+
+
+def print_epoch_lines(errs, metrics, epochs, seconds_per_epoch):
+    """The reference's per-epoch lines (mr_gan.py:226-227) for each fold,
+    then its ``Test error:`` line, in the JAX package's format
+    (mrgan_tpu/train/protocol.py:204-213)."""
+    for f in range(len(errs)):
+        for e in range(epochs):
+            print(EPOCH_LINE % (
+                e + 1, int(seconds_per_epoch), metrics["loss_lab"][f][e],
+                metrics["loss_unl"][f][e], metrics["train_err"][f][e],
+                metrics["test_err"][f][e]))
+        print("Test error:", float(errs[f]))
+
+
 def run_gan_cell(x, y=None, percentlabeled=50, percentunlabeled=None,
                  cfg=gan.GanConfig(), seed=0, n_splits=6, splits=None,
                  verbose=False, device=None):
@@ -93,21 +149,14 @@ def run_gan_cell(x, y=None, percentlabeled=50, percentunlabeled=None,
     test errors (numpy).
 
     ``x``: a ``DeviceDataset``, or a feature matrix that is uploaded to
-    ``device``. ``splits``: optional explicit (train_idx, test_idx) pairs,
-    else stratified ``n_splits``-fold."""
-    if verbose:
-        raise NotImplementedError(
-            "verbose per-epoch lines (track_epoch_metrics) are not ported "
-            "yet: " + gan.ROADMAP_A8)
+    ``device`` (then required). ``splits``: optional explicit (train_idx,
+    test_idx) pairs, else stratified ``n_splits``-fold. ``verbose``: train
+    with per-epoch metrics and print the reference's epoch lines; the time
+    field is the cell's wall time spread evenly over its epochs, as in the
+    JAX package (its fused scan has no per-epoch host clock)."""
     rng = np.random.RandomState(seed)
-    ds = x if isinstance(x, DeviceDataset) else DeviceDataset(
-        x, y, cfg.pad_multiple, cfg.pad_min, device=device)
-    required = gan.pad_dim(ds.valid_dim, cfg.pad_multiple, cfg.pad_min)
-    if ds.X.shape[-1] < required:
-        raise ValueError(
-            "DeviceDataset was built with padded width %d (pad_min=%d) but "
-            "the config requires width >= %d; rebuild the DeviceDataset with "
-            "pad_min=cfg.pad_min" % (ds.X.shape[-1], ds.pad_min, required))
+    ds = as_dataset(x, y, cfg.pad_multiple, cfg.pad_min, device)
+    check_padded_width(ds, cfg)
     if splits is None:
         splits = stratified_splits(ds.y_host, n_splits=n_splits, seed=seed)
     idx = [
@@ -115,14 +164,98 @@ def run_gan_cell(x, y=None, percentlabeled=50, percentunlabeled=None,
                      cfg.num_classes, rng)
         for tr, te in splits
     ]
-    return run_indexed_folds(ds, idx, cfg, rng)
+    if not verbose:
+        return run_indexed_folds(ds, idx, cfg, rng)
+    cfg_v = dataclasses.replace(cfg, track_epoch_metrics=True)
+    t0 = time.perf_counter()
+    errs, metrics = run_indexed_folds(ds, idx, cfg_v, rng)
+    dt = (time.perf_counter() - t0) / max(cfg.epochs * len(idx), 1)
+    print_epoch_lines(errs, metrics, cfg.epochs, dt)
+    return errs
 
 
 def run_indexed_folds(ds, idx, cfg, rng):
     """Stack per-fold index tuples and train them in one launch against
     ds.X. The trainer's generator is seeded from one ``rng.randint`` draw,
-    as the JAX package's keys are."""
+    as the JAX package's keys are. Returns what ``gan.train_folds_indexed``
+    returns."""
     lab, pool, train, test = (np.stack([f[i] for f in idx]) for i in range(4))
     generator = rng_util.make_generator(rng.randint(2**31 - 1), ds.X.device)
     return gan.train_folds_indexed(generator, ds.X, ds.y, lab, pool, train,
                                    test, valid_dim=ds.valid_dim, cfg=cfg)
+
+
+# --------------------------------------------------------------------------
+# Leave-one-object-out
+# --------------------------------------------------------------------------
+
+def objects_dataset(objects, pad_multiple, pad_min, device):
+    """Every object's rows, in dict order, as one DeviceDataset on
+    ``device``; returns (names, row offsets, dataset)."""
+    names = list(objects.keys())
+    x_all = torch.cat([torch.as_tensor(objects[n]["x"], dtype=torch.float32,
+                                       device=device) for n in names])
+    y_all = torch.cat([torch.as_tensor(objects[n]["y"], device=device)
+                       for n in names])
+    offs = np.cumsum([0] + [len(objects[n]["y"]) for n in names])
+    return names, offs, DeviceDataset(x_all, y_all, pad_multiple, pad_min,
+                                      device=device)
+
+
+def run_gan_loo(objects, percentlabeled, cfg=gan.GanConfig(), seed=0,
+                chunk=None, on_result=None, *, device):
+    """Leave-one-object-out protocol (mr_gan.py:263-283): every held-out
+    object is a work item with the same static shapes, so blocks of
+    ``chunk`` items (``loo_chunk``: 6) train in one launch each, gathered
+    from one device-resident copy of the rows.
+
+    Returns (names, errors) in dict order; ``on_result(name, err)`` fires per
+    object as each block completes."""
+    rng = np.random.RandomState(seed)
+    names, offs, ds = objects_dataset(objects, cfg.pad_multiple, cfg.pad_min,
+                                      device)
+    if chunk is None:
+        chunk = loo_chunk(len(names))
+    errors = []
+    for block, idx, n_real in iter_loo_blocks(
+            names, offs, ds.y_host, percentlabeled, cfg.num_classes, rng,
+            chunk):
+        errs = run_indexed_folds(ds, idx, cfg, rng)[:n_real]
+        for i, e in zip(block, errs):
+            errors.append(float(e))
+            if on_result is not None:
+                on_result(names[i], float(e))
+    return names, np.asarray(errors)
+
+
+def loo_chunk(n_names):
+    """Work items per LOO launch: 6, the JAX package's width on one device
+    (``loo_chunk(n, mesh=None)``). The labeled rows depend on it: the
+    numpy stream draws a block's permutations, then the block's trainer
+    seed, then the next block's, so only a chunk of 6 picks the rows of
+    the JAX package's recorded runs."""
+    return min(n_names, 6)
+
+
+def iter_loo_blocks(names, offs, y_host, percentlabeled, num_classes, rng,
+                    chunk):
+    """Shared leave-one-object-out block construction (mr_gan.py:263-283 /
+    mr_nn.py:148-168 protocol): yields (block_object_indices, per-object
+    fold_indices tuples padded to the chunk width, n_real)."""
+    all_rows = np.arange(offs[-1])
+    for s in range(0, len(names), chunk):
+        block = list(range(s, min(s + chunk, len(names))))
+        idx = []
+        for i in block:
+            test_idx = all_rows[offs[i] : offs[i + 1]]
+            train_idx = np.concatenate(
+                [all_rows[: offs[i]], all_rows[offs[i + 1] :]]
+            )
+            idx.append(
+                fold_indices(y_host, train_idx, test_idx, percentlabeled,
+                             None, num_classes, rng)
+            )
+        n_real = len(idx)
+        while len(idx) < min(chunk, len(names)):  # pad short final chunk
+            idx.append(idx[0])
+        yield block, idx, n_real

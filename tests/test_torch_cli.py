@@ -96,10 +96,27 @@ def test_gan_main_prints_the_jax_cli_lines_on_cpu(tmp_path):
 
 
 def test_gan_main_refuses_what_is_not_ported():
-    for argv in (["--tables", "1", "3"], ["--tables", "6"],
-                 ["--tables", "1", "-v"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A8"):
-            tables.gan_main(argv + ["--device", "cpu"])
+    # every table and -v is ported (test_gan_main_runs_tables_3_6_and_
+    # verbose); a device the port has no route for is refused
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tables.gan_main(ARGS + ["--device", "meta"])
+
+
+def test_gan_main_runs_tables_3_6_and_verbose(monkeypatch):
+    # grids shrunk as tests/test_cli.py shrinks them
+    for name, value in (("PERCENTS_KFOLD", [100]), ("PERCENTS_LOO", [100]),
+                        ("UNLABELED_GRID", [0])):
+        monkeypatch.setattr(tables, name, value)
+    out = _stdout(tables.gan_main, ["--tables", "1", "3", "6", "-v"]
+                  + ARGS[2:] + ["--device", "cpu"])
+    for title in ("Testing various amounts of labeled training data",
+                  "Testing generalization with leave-one-object-out "
+                  "validation",
+                  "Testing performance as quantity of unlabeled data "
+                  "increases"):
+        assert title in out
+    assert out.count("Epoch 1, time = ") == 6
+    assert out.count("Test error:") == 6 + 6 + 72 + 6
 
 
 def test_device_cuda_without_a_card_raises():

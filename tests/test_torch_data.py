@@ -106,3 +106,20 @@ def test_synthetic_memo_serves_an_audio_free_request():
     x2, _ = mreo.load_features(2, **kw)
     assert mreo._MEMO["value"] is value  # no second synthesis
     np.testing.assert_array_equal(x2.numpy(), x5[:, :3 * FT_LEN].numpy())
+
+
+@pytest.mark.parametrize("modality", [2, 5])
+def test_load_features_deriv_matches_jax(modality):
+    kw = dict(modalities=modality, synthetic_seed=0, deriv=True,
+              synthetic_kwargs={"pokes_per_object": 2})
+    x, y = mreo.load_features(device="cpu", **kw)
+    want_x, want_y = jax_mreo.load_features(**kw)
+    np.testing.assert_array_equal(y.numpy(), want_y)
+    n_trace = 3 * FT_LEN
+    np.testing.assert_allclose(x[:, :n_trace].numpy(), want_x[:, :n_trace],
+                               rtol=1e-6)
+    plain, _ = mreo.load_features(device="cpu", **{**kw, "deriv": False})
+    assert not torch.equal(plain[:, :n_trace], x[:, :n_trace])
+    if modality in features.NEEDS_AUDIO:  # the audio is not differentiated
+        np.testing.assert_array_equal(x[:, n_trace:].numpy(),
+                                      plain[:, n_trace:].numpy())

@@ -101,3 +101,14 @@ def test_interp_matches_jnp_interp():
     want = np.asarray(jax.vmap(jnp.interp)(x, xp, fp))
     got = resample.interp(*(torch.from_numpy(a) for a in (x, xp, fp)))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_first_deriv_matches_jax():
+    rng = np.random.RandomState(7)
+    t = np.cumsum(rng.uniform(0.005, 0.015, (5, 40)), axis=1).astype(np.float32)
+    x = np.cumsum(rng.randn(5, 40), axis=1).astype(np.float32)
+    want = np.asarray(jax_resample.first_deriv(x, t))
+    got = resample.first_deriv(torch.from_numpy(x), torch.from_numpy(t))
+    assert got.shape == want.shape == (5, 40) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+    np.testing.assert_array_equal(got[:, -1].numpy(), got[:, -2].numpy())

@@ -171,7 +171,8 @@ def test_orbax_directory_is_refused_with_advice(tmp_path):
 def test_process_sequences_matches_jax(duration, contact_len):
     raw = synthetic.generate_raw_file(seed=1, material="metal", pokes=4)
     want = jax_preprocess.process_sequences(raw, duration, contact_len)
-    got = preprocess.process_sequences(raw, duration, contact_len)
+    got = preprocess.process_sequences(raw, duration, contact_len,
+                                       device="cpu")
     assert got.keys() == want.keys()
     for key in want:
         g, w = np.asarray(got[key]), np.asarray(want[key])
@@ -183,6 +184,12 @@ def test_process_sequences_matches_jax(duration, contact_len):
             np.testing.assert_array_equal(g[:, -1], w[:, -1], err_msg=key)
         np.testing.assert_allclose(g, w, rtol=0, atol=1e-5 * np.ptp(w),
                                    err_msg=key)
+
+
+def test_process_sequences_needs_a_device():
+    raw = synthetic.generate_raw_file(seed=1, material="metal", pokes=1)
+    with pytest.raises(TypeError, match="device"):
+        preprocess.process_sequences(raw, 4.0, 0.2)
 
 
 def test_classify_raw_poke_matches_jax(jax_clf):

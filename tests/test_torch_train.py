@@ -189,11 +189,10 @@ def test_adam_matches_jax(dtype, t0):
 def test_config_refuses_what_is_not_ported():
     with pytest.raises(ValueError, match="float32 weights only"):
         gan.GanConfig(matmul_weight_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="A8"):
-        gan.GanConfig(track_epoch_metrics=True)
     with pytest.raises(ValueError):
         gan.GanConfig(opt_state_dtype="float16")
     assert gan.GanConfig().pad_multiple == 1
+    assert gan.GanConfig(track_epoch_metrics=True).track_epoch_metrics
 
 
 # --------------------------------------------------------------------------
@@ -325,8 +324,8 @@ def test_padded_pool_is_never_sampled():
     gen = rng_util.make_generator(0, "cpu")
     _, u1, u2 = gan.epoch_schedule(gen, 6, 60, n_valid, train.shape[1], 10)
     assert int(u1.max()) < n_valid and int(u2.max()) < n_valid
-    errs = protocol.run_gan_cell(ds, 1, 2, cfg=gan.GanConfig(epochs=1,
-                                                             batch_size=10))
+    errs = protocol.run_gan_cell(ds, percentlabeled=1, percentunlabeled=2,
+                                 cfg=gan.GanConfig(epochs=1, batch_size=10))
     assert errs.shape == (6,) and np.isfinite(errs).all()
 
 
@@ -393,6 +392,94 @@ def test_scale_folds_match_jax_fold_prep():
 
 
 def test_run_gan_cell_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A8"):
-        protocol.run_gan_cell(np.zeros((12, 3)), np.arange(12) % 6,
-                              verbose=True, device="cpu")
+    # a feature matrix without a device: nothing falls back to the CPU
+    x, y = np.zeros((12, 3), np.float32), np.arange(12) % 6
+    for verbose in (False, True):
+        with pytest.raises(ValueError, match="device= is required"):
+            protocol.run_gan_cell(x, y, verbose=verbose, n_splits=2)
+    # a DeviceDataset holds its labels: a second positional argument (a
+    # label share meant for percentlabeled) is refused, not ignored
+    ds = protocol.DeviceDataset(x, y, device="cpu")
+    with pytest.raises(TypeError, match="y must be None"):
+        protocol.run_gan_cell(ds, 50)
+
+
+# --------------------------------------------------------------------------
+# Per-epoch metrics (-v)
+# --------------------------------------------------------------------------
+
+def test_epoch_metrics_match_jax_train_one(monkeypatch):
+    """Two tiny epochs of train_folds fed _train_one's own draws with
+    track_epoch_metrics: the four (F, epochs) metric arrays agree."""
+    valid, n_lab, n_train, n_test = 24, 36, 80, 30
+    rng = np.random.RandomState(13)
+    centers = 2.0 * rng.randn(6, valid)
+    y_lab, y_pool, y_test = (np.arange(n) % 6 for n in (n_lab, n_train,
+                                                         n_test))
+    x_lab, pool, x_test = ((centers[y] + rng.randn(len(y), valid))
+                           .astype(np.float32) for y in (y_lab, y_pool, y_test))
+    common = dict(epochs=2, batch_size=40, opt_state_dtype="float32",
+                  track_epoch_metrics=True)
+    jcfg = jax_gan.GanConfig(pad_multiple=1, matmul_weight_dtype="float32",
+                             **common)
+    cfg = gan.GanConfig(**common)
+    key = jax.random.PRNGKey(14)
+    want_err, want = jax.jit(functools.partial(
+        jax_gan._train_one, n_train=n_train, valid_dim=valid, cfg=jcfg))(
+            key, x_lab, y_lab.astype(np.int32), pool, x_test,
+            y_test.astype(np.int32))
+
+    params, steps = _jax_draws(key, jcfg, n_lab, n_train, n_train, valid)
+    nb = n_train // cfg.batch_size
+    t = torch.tensor
+    epochs = iter([tuple(t(np.stack([s[i] for s in steps[e:e + nb]]))[None]
+                         for i in range(3))
+                   for e in range(0, len(steps), nb)])
+    draws = iter([{k: ([t(a)[None] for a in v] if isinstance(v, list)
+                       else t(v)[None]) for k, v in s[3].items()}
+                  for s in steps])
+    monkeypatch.setattr(gan, "init_params",
+                        lambda *a, **k: gan.params_from_jax(params))
+    monkeypatch.setattr(gan, "epoch_schedule", lambda *a, **k: next(epochs))
+    monkeypatch.setattr(gan, "draw_step", lambda *a, **k: next(draws))
+    errs, aux = gan.train_folds(
+        rng_util.make_generator(0, "cpu"), t(x_lab)[None], t(y_lab)[None],
+        t(pool)[None], t(x_test)[None], t(y_test)[None], n_train=n_train,
+        cfg=cfg)
+    assert next(draws, None) is None  # every draw consumed
+    for name in gan.EPOCH_METRICS:
+        assert aux[name].shape == (1, 2), name
+        got, ref = aux[name][0], np.asarray(want[name])
+        if name.endswith("err"):  # the same count of wrong rows
+            rows = n_test if name == "test_err" else nb * cfg.batch_size
+            np.testing.assert_array_equal(np.rint(got * rows),
+                                          np.rint(ref * rows), err_msg=name)
+            np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
+        else:
+            np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5,
+                                       err_msg=name)
+    assert errs[0] == pytest.approx(float(want_err))
+    assert aux["test_err"][0, -1] == errs[0]
+
+
+def test_verbose_lines_equal_the_jax_packages(monkeypatch, capsys):
+    errs = np.asarray([0.125, 0.5], np.float32)
+    metrics = {"loss_lab": np.asarray([[1.23456, -0.5], [2.0, 3.0]]),
+               "loss_unl": np.asarray([[0.75, 0.25], [1e-5, 7.0]]),
+               "train_err": np.asarray([[0.5, 0.25], [0.0, 1.0]]),
+               "test_err": np.asarray([[0.33333, 0.2], [0.1, 0.9]])}
+    fixed = lambda *a, **k: (errs, metrics)  # noqa: E731
+    monkeypatch.setattr(jax_protocol, "run_indexed_folds", fixed)
+    monkeypatch.setattr(protocol, "run_indexed_folds", fixed)
+    x = np.random.RandomState(0).randn(24, 4).astype(np.float32)
+    y = np.arange(24) % 6
+    jax_protocol.run_gan_cell(x, y, 100, cfg=jax_gan.GanConfig(epochs=2),
+                              n_splits=2, verbose=True)
+    want = capsys.readouterr().out
+    protocol.run_gan_cell(x, y, 100, cfg=gan.GanConfig(epochs=2), n_splits=2,
+                          verbose=True, device="cpu")
+    got = capsys.readouterr().out
+    assert got == want and got.count("Epoch ") == 4
+    assert got.splitlines()[0] == (
+        "Epoch 1, time = 0s, loss labeled = 1.2346, loss unlabeled = 0.7500, "
+        "train error = 0.5000, test error = 0.3333")
