@@ -1,0 +1,293 @@
+"""Variant baselines (others/wganlpctsemi.py:141-221, learnNNSVM).
+
+Port of ``mrgan_tpu/variants/baselines.py``:
+
+- 'nn'   the residual LeakyReLU/Dropout classifier, categorical
+         cross-entropy, Keras Adam (b1 0.9), 200 epochs, batch 64 (:161-186);
+- 'lstm' the 3-layer biLSTM(16) over the feature vector as a scalar
+         sequence, 100 epochs, batch 128 (:187-203), through the recurrence
+         kernels on a CUDA device (``ops/lstm.py``);
+- 'svm'  / 'rf' scikit-learn's SVC/NuSVC/LinearSVC zoo and random forest
+         (:204-221), where scikit-learn is installed.
+
+All return ACCURACY, the variant's convention. The trainers take one fold
+(a leading fold axis of 1), draw each epoch's permutation and dropout masks
+up front from one ``torch.Generator`` on the device and pass them to the
+step as arguments. ``pca_scale``'s scalers are numpy copies of
+scikit-learn's ``Normalizer`` and ``StandardScaler``, which the machine
+with the card does not have.
+"""
+
+import dataclasses
+import importlib
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..models import variant_nets as vnets
+from ..train import optim, schedule
+from ..utils import rng as rng_util
+from ..utils import tree
+
+
+# --------------------------------------------------------------------------
+# Preprocessing (pcaScale, wganlpctsemi.py:135-148)
+# --------------------------------------------------------------------------
+
+def _handle_zeros(scale, constant):
+    scale = scale.copy()
+    scale[constant] = 1.0
+    return scale
+
+
+def normalize_rows(x):
+    """scikit-learn's ``Normalizer()`` (l2, rows): each row over its norm,
+    computed in the input's float type; rows of norm < 10 eps pass."""
+    x = np.array(x, dtype=x.dtype if x.dtype in (np.float32, np.float64)
+                 else np.float64)
+    norms = np.sqrt(np.einsum("ij,ij->i", x, x))
+    norms = _handle_zeros(norms, norms < 10 * np.finfo(norms.dtype).eps)
+    x /= norms[:, None]
+    return x
+
+
+class StandardScaler:
+    """scikit-learn's ``StandardScaler`` (1.x) on a dense array: mean and
+    variance accumulated in float64 (the corrected two-pass sum), columns
+    within float64 rounding of a constant keep scale 1, the transform in
+    the input's float type."""
+
+    def fit(self, x):
+        x = np.asarray(x)
+        n = x.shape[0]
+        total = np.sum(x, axis=0, dtype=np.float64)
+        self.mean_ = total / n
+        temp = x - total / n
+        correction = np.sum(temp, axis=0, dtype=np.float64)
+        temp **= 2
+        var = np.sum(temp, axis=0, dtype=np.float64) - correction ** 2 / n
+        self.var_ = var / n
+        eps = np.finfo(np.float64).eps
+        constant = self.var_ <= n * eps * self.var_ + (n * self.mean_ * eps) ** 2
+        self.scale_ = _handle_zeros(np.sqrt(self.var_), constant)
+        return self
+
+    def transform(self, x):
+        x = np.array(x, dtype=x.dtype if x.dtype in (np.float32, np.float64)
+                     else np.float64)
+        x -= self.mean_.astype(x.dtype)
+        x /= self.scale_.astype(x.dtype)
+        return x
+
+
+def pca_scale(x_train, x_test, pca=0, scale=None):
+    """pcaScale (wganlpctsemi.py:135-148): optional PCA (scikit-learn, which
+    must then be installed; the grids use 0), then the l2 row normalizer
+    ("norm") or the standard scaler (any other ``scale``). float32 out."""
+    x_train, x_test = np.asarray(x_train), np.asarray(x_test)
+    if pca and pca > 0:
+        p = _scikit_learn("decomposition", "pca=%r" % pca).PCA(
+            n_components=pca)
+        x_train = p.fit_transform(x_train)
+        x_test = p.transform(x_test)
+    if scale == "norm":
+        x_train, x_test = normalize_rows(x_train), normalize_rows(x_test)
+    elif scale is not None:
+        scaler = StandardScaler().fit(x_train)
+        x_train, x_test = scaler.transform(x_train), scaler.transform(x_test)
+    return np.asarray(x_train, np.float32), np.asarray(x_test, np.float32)
+
+
+def fraction_labeled(y, rows, fraction, num_classes, rng):
+    """Fraction-of-each-class labeled selection (wganlpctsemi.py:153-156,
+    240-242) in index space: shuffle ``rows`` with ``rng``, then the first
+    int(count * fraction) rows of each class. Returns (labeled rows,
+    shuffled rows)."""
+    shuffled = np.asarray(rows)[rng.permutation(len(rows))]
+    ys = y[shuffled]
+    lab = np.concatenate([shuffled[ys == j][: int((ys == j).sum() * fraction)]
+                          for j in range(num_classes)])
+    return lab, shuffled
+
+
+def select_fraction_labeled(x_train, y_train, fraction, num_classes, rng):
+    """:func:`fraction_labeled` on the rows themselves: (x, int32 y)."""
+    lab, _ = fraction_labeled(y_train, np.arange(len(y_train)), fraction,
+                              num_classes, rng)
+    return x_train[lab], np.asarray(y_train[lab], np.int32)
+
+
+# --------------------------------------------------------------------------
+# Shared trainer pieces
+# --------------------------------------------------------------------------
+
+def ce_loss(logits, y_onehot):
+    """Categorical cross-entropy against one-hot rows, per fold."""
+    return -(y_onehot * F.log_softmax(logits, dim=-1)).sum(-1).mean(-1)
+
+
+def _batches(n, batch_size):
+    bs = min(batch_size, n)
+    return bs, max(n // bs, 1)
+
+
+def _upload(device, *arrays):
+    """numpy (n, D) rows / (n,) labels -> tensors with a fold axis of 1."""
+    out = []
+    for a in arrays:
+        a = np.asarray(a)
+        dtype = torch.float32 if a.dtype.kind == "f" else torch.int64
+        out.append(torch.as_tensor(a, dtype=dtype, device=device).unsqueeze(0))
+    return out
+
+
+def _step(state, loss_fn, cfg):
+    p = tree.tree_map(lambda a: a.detach().requires_grad_(), state["params"])
+    loss = loss_fn(p)
+    grads = torch.autograd.grad(loss.sum(), tree.leaves(p))
+    params, opt = optim.update(tree.unflatten(p, grads), state["opt"],
+                               state["params"], lr=cfg.lr, b1=0.9)
+    return {"params": params, "opt": opt}, loss.detach()
+
+
+def _accuracy(logits, y):
+    return float((logits.argmax(dim=-1) == y).to(torch.float32).mean())
+
+
+# --------------------------------------------------------------------------
+# Residual NN
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ResNNConfig:
+    epochs: int = 200        # wganlpctsemi.py:165
+    batch_size: int = 64
+    lr: float = 1e-3         # keras Adam default
+    blocks: int = 3
+    dropout: float = 0.2
+    num_classes: int = 6
+
+
+def resnn_init_state(generator, in_dim, cfg):
+    params = vnets.res_classifier_init(generator, in_dim, cfg.num_classes, 1,
+                                       cfg.blocks, generator.device)
+    return {"params": params, "opt": optim.init(params)}
+
+
+def resnn_draw_epoch(generator, n, in_dim, cfg):
+    """An epoch's draws: a permutation of the n rows cut to nb * bs, (nb,
+    bs), and each step's ``blocks`` keep-masks, (nb, blocks, 1, bs, D)."""
+    bs, nb = _batches(n, cfg.batch_size)
+    perm = schedule._permutations(generator, (), n)[: nb * bs].view(nb, bs)
+    keep = torch.rand((nb, cfg.blocks, 1, bs, in_dim), generator=generator,
+                      device=generator.device) < 1.0 - cfg.dropout
+    return perm, keep
+
+
+def resnn_train_step(state, xb, yb, keep, cfg):
+    """One Adam update on (1, bs, D) rows and (1, bs, K) one-hot labels with
+    the step's keep-masks. Returns (state, (1,) loss)."""
+    return _step(state, lambda p: ce_loss(vnets.res_classifier_apply(
+        p, xb, list(keep), cfg.blocks, cfg.dropout), yb), cfg)
+
+
+def learn_resnn(x_lab, y_lab, x_test, y_test, cfg=ResNNConfig(), seed=0, *,
+                device):
+    """Train on the labeled rows, return the test accuracy."""
+    generator = rng_util.make_generator(seed, device)
+    x, y, xt, yt = _upload(device, x_lab, y_lab, x_test, y_test)
+    onehot = F.one_hot(y, cfg.num_classes).to(torch.float32)
+    state = resnn_init_state(generator, x.shape[-1], cfg)
+    for _ in range(cfg.epochs):
+        perm, keep = resnn_draw_epoch(generator, x.shape[1], x.shape[-1], cfg)
+        for b in range(perm.shape[0]):
+            state, _ = resnn_train_step(state, x[:, perm[b]],
+                                        onehot[:, perm[b]], keep[b], cfg)
+    with torch.no_grad():
+        return _accuracy(vnets.res_classifier_apply(
+            state["params"], xt, blocks=cfg.blocks), yt)
+
+
+# --------------------------------------------------------------------------
+# biLSTM classifier
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BiLstmConfig:
+    epochs: int = 100        # wganlpctsemi.py:192
+    batch_size: int = 128
+    lr: float = 1e-3
+    units: int = 16
+    layers: int = 3
+    num_classes: int = 6
+
+
+def bilstm_init_state(generator, cfg):
+    params = vnets.bilstm_classifier_init(generator, cfg.num_classes, 1,
+                                          cfg.units, cfg.layers,
+                                          generator.device)
+    return {"params": params, "opt": optim.init(params)}
+
+
+def bilstm_train_step(state, xb, yb, cfg):
+    """One Adam update on (1, bs, D) rows and (1, bs, K) one-hot labels."""
+    return _step(state, lambda p: ce_loss(
+        vnets.bilstm_classifier_apply(p, xb, cfg.layers), yb), cfg)
+
+
+def learn_bilstm(x_lab, y_lab, x_test, y_test, cfg=BiLstmConfig(), seed=0, *,
+                 device):
+    """Train on the labeled rows, return the test accuracy."""
+    generator = rng_util.make_generator(seed, device)
+    x, y, xt, yt = _upload(device, x_lab, y_lab, x_test, y_test)
+    onehot = F.one_hot(y, cfg.num_classes).to(torch.float32)
+    n = x.shape[1]
+    bs, nb = _batches(n, cfg.batch_size)
+    state = bilstm_init_state(generator, cfg)
+    for _ in range(cfg.epochs):
+        perm = schedule._permutations(generator, (), n)[: nb * bs]
+        for b in range(nb):
+            rows = perm[b * bs:(b + 1) * bs]
+            state, _ = bilstm_train_step(state, x[:, rows], onehot[:, rows],
+                                         cfg)
+    with torch.no_grad():
+        return _accuracy(vnets.bilstm_classifier_apply(
+            state["params"], xt, cfg.layers), yt)
+
+
+# --------------------------------------------------------------------------
+# SVM kernel zoo and random forest (scikit-learn)
+# --------------------------------------------------------------------------
+
+def _scikit_learn(module, what):
+    """scikit-learn's ``module``, imported at first use; where scikit-learn
+    is missing (as on the machine with the card) this raises, naming
+    ``what``."""
+    try:
+        return importlib.import_module("sklearn." + module)
+    except ImportError as e:
+        raise RuntimeError("%s runs scikit-learn, which is not installed "
+                           "here" % what) from e
+
+
+def learn_svm(x_lab, y_lab, x_test, y_test, kernel=0):
+    svm_lib = _scikit_learn("svm", "-a svm")
+    models = {
+        0: lambda: svm_lib.SVC(kernel="rbf"),
+        1: lambda: svm_lib.SVC(kernel="linear"),
+        2: lambda: svm_lib.NuSVC(kernel="rbf"),
+        3: lambda: svm_lib.NuSVC(kernel="linear"),
+        4: lambda: svm_lib.LinearSVC(),
+    }
+    svm = models[kernel]()
+    svm.fit(x_lab, y_lab)
+    return float(svm.score(x_test, y_test))
+
+
+def learn_rf(x_lab, y_lab, x_test, y_test, n_estimators=10, seed=0):
+    ensemble = _scikit_learn("ensemble", "-a rf")
+    model = ensemble.RandomForestClassifier(n_estimators=n_estimators,
+                                            random_state=seed)
+    model.fit(x_lab, y_lab)
+    return float(model.score(x_test, y_test))

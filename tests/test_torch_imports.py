@@ -38,7 +38,10 @@ def test_port_imports_without_jax():
                  "train.gan", "train.schedule", "train.mlp", "train.svm",
                  "train.native_svm", "models.losses", "data.mreo",
                  "data.synthetic", "cli.tables", "utils.rng",
-                 "utils.metrics", "utils.checkpoint", "utils.stamp"):
+                 "utils.metrics", "utils.checkpoint", "utils.stamp",
+                 "ops.lstm", "ops.lstm_cuda", "models.variant_nets",
+                 "variants.wgan", "variants.baselines", "data.spectrometer",
+                 "cli.wgan_grid"):
         assert "mrgan_tpu_torch." + name in names
     proc = subprocess.run(
         [sys.executable, "-c", _CHILD, *names], cwd=ROOT,
@@ -53,16 +56,22 @@ def test_port_sources_name_no_jax():
     for dirpath, _, files in os.walk(os.path.join(ROOT, "mrgan_tpu_torch")):
         paths += [os.path.join(dirpath, f) for f in files
                   if f.endswith((".py", ".cu"))]
-    # the one place scikit-learn is named: the lazy import of the
-    # --svm-solver libsvm route (the child above proves importing the
-    # module does not reach it)
-    lazy = os.path.join(ROOT, "mrgan_tpu_torch", "train", "svm.py")
+    # the places scikit-learn is named: the lazy imports of the
+    # --svm-solver libsvm route and of the variant zoo's scikit-learn
+    # estimators (-a svm / rf, pca > 0); the child above proves importing
+    # the modules does not reach them
+    lazy = {
+        os.path.join(ROOT, "mrgan_tpu_torch", "train", "svm.py"):
+            "from sklearn.svm import SVC",
+        os.path.join(ROOT, "mrgan_tpu_torch", "variants", "baselines.py"):
+            'importlib.import_module("sklearn." + module)',
+    }
     for path in paths:
         with open(path) as fh:
             src = fh.read()
-        if path == lazy:
-            assert src.count("from sklearn.svm import SVC") == 1
-            src = src.replace("from sklearn.svm import SVC", "")
+        if path in lazy:
+            assert src.count(lazy[path]) == 1, path
+            src = src.replace(lazy[path], "")
         for word in ("import jax", "from jax", "sklearn", "orbax",
                      "mrgan_tpu."):
             assert word not in src, (path, word)

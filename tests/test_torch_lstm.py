@@ -1,0 +1,179 @@
+"""The port's Keras-semantics LSTM recurrence (ops/lstm.py, the plain
+versions of the kernels in ops/lstm_cuda.py) vs the JAX package's lax.scan
+(mrgan_tpu/models/variant_nets.py), on the CPU: outputs and gradients, both
+directions, with and without return_sequences."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mrgan_tpu.models import variant_nets as jax_vnets
+from mrgan_tpu_torch.models import variant_nets as vnets
+from mrgan_tpu_torch.ops import lstm, lstm_cuda
+
+T, B, U = 37, 5, 3
+TOL = 1e-5  # fp32: the scan's sums run in another order than XLA's
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _folds(init, n_folds, *args):
+    """n_folds JAX parameter trees (numpy) and the port's fold-stacked one."""
+    trees = [_np(init(jax.random.PRNGKey(10 + f), *args))
+             for f in range(n_folds)]
+    stacked = jax.tree.map(lambda *a: np.stack(a), *trees)
+    return trees, vnets.params_from_jax(stacked)
+
+
+def _inputs(n_folds, in_dim, seed=0):
+    rng = np.random.RandomState(seed)
+    xs = rng.randn(n_folds, B, T, in_dim).astype(np.float32)
+    return xs, rng
+
+
+def _grads_vs_jax(jax_fn, port_fn, trees, params, xs, out_shape, rng):
+    """Outputs and the gradients of sum(out * w) w.r.t. every parameter and
+    the input, the port's against jax.grad per fold."""
+    w = rng.randn(*out_shape).astype(np.float32)
+    p = jax.tree.map(lambda a: a.detach().requires_grad_(), params)
+    x = torch.tensor(xs, requires_grad=True)
+    out = port_fn(p, x)
+    leaves = jax.tree.leaves(p)
+    grads = torch.autograd.grad((out * torch.tensor(w)).sum(), [x] + leaves)
+    gx, gp = grads[0], jax.tree.unflatten(jax.tree.structure(p), grads[1:])
+    @jax.jit
+    def reference(tree, x, w):
+        want, vjp = jax.vjp(jax_fn, tree, x)
+        return (want, *vjp(w))
+
+    for f, tree in enumerate(trees):
+        want, jgp, jgx = reference(tree, xs[f], w[f])
+        np.testing.assert_allclose(out[f].detach().numpy(), np.asarray(want),
+                                   rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(gx[f].numpy(), np.asarray(jgx), rtol=TOL,
+                                   atol=TOL)
+        for got, ref in zip(jax.tree.leaves(gp), jax.tree.leaves(jgp)):
+            np.testing.assert_allclose(got[f].numpy(), np.asarray(ref),
+                                       rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("in_dim", [1, 6])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("return_sequences", [True, False])
+def test_lstm_matches_jax(in_dim, reverse, return_sequences):
+    trees, params = _folds(jax_vnets.lstm_init, 2, in_dim, U)
+    xs, rng = _inputs(2, in_dim)
+    shape = (2, B, T, U) if return_sequences else (2, B, U)
+    _grads_vs_jax(
+        lambda t, x: jax_vnets.lstm_apply(t, x, reverse, return_sequences),
+        lambda p, x: vnets.lstm_apply(p, x, reverse, return_sequences),
+        trees, params, xs, shape, rng)
+
+
+@pytest.mark.parametrize("in_dim", [1, 6])
+@pytest.mark.parametrize("return_sequences", [True, False])
+def test_bilstm_matches_jax(in_dim, return_sequences):
+    trees, params = _folds(jax_vnets.bilstm_init, 2, in_dim, U)
+    xs, rng = _inputs(2, in_dim, seed=1)
+    shape = (2, B, T, 2 * U) if return_sequences else (2, B, 2 * U)
+    _grads_vs_jax(
+        lambda t, x: jax_vnets.bilstm_apply(t, x, return_sequences),
+        lambda p, x: vnets.bilstm_apply(p, x, return_sequences),
+        trees, params, xs, shape, rng)
+
+
+def _through_kernels(params, xs, dirs, reverse, return_sequences):
+    """The LstmScan Function (the kernels' plain versions on the CPU),
+    laid out like ops.lstm._layer's result."""
+    if dirs == 2:
+        w = lstm._both(params)
+    else:
+        w = [params[k].unsqueeze(1) for k in ("wx", "wh", "b")]
+    h = lstm.LstmScan.apply(xs.transpose(1, 2).contiguous(), *w, dirs,
+                            reverse, return_sequences)
+    n_folds = xs.shape[0]
+    if return_sequences:
+        return h.permute(0, 3, 2, 1, 4).reshape(n_folds, B, T, -1)
+    return h.permute(0, 2, 1, 3).reshape(n_folds, B, -1)
+
+
+@pytest.mark.parametrize("in_dim", [1, 6])
+@pytest.mark.parametrize("return_sequences", [True, False])
+def test_kernel_function_matches_jax(in_dim, return_sequences):
+    """The autograd Function whose forward and backward are the kernels on
+    the card: the plain versions of both kernels, the products of dz
+    outside them, against jax.grad."""
+    trees, params = _folds(jax_vnets.bilstm_init, 2, in_dim, U)
+    xs, rng = _inputs(2, in_dim, seed=2)
+    shape = (2, B, T, 2 * U) if return_sequences else (2, B, 2 * U)
+    _grads_vs_jax(
+        lambda t, x: jax_vnets.bilstm_apply(t, x, return_sequences),
+        lambda p, x: _through_kernels(p, x, 2, False, return_sequences),
+        trees, params, xs, shape, rng)
+    trees, params = _folds(jax_vnets.lstm_init, 1, in_dim, U)
+    _grads_vs_jax(
+        lambda t, x: jax_vnets.lstm_apply(t, x, True, return_sequences),
+        lambda p, x: _through_kernels(p, x, 1, True, return_sequences),
+        trees, params, xs[:1], (1,) + shape[1:-1] + (U,), rng)
+
+
+@pytest.mark.parametrize("x", [-2.5, 2.5, 0.0, 2.4, -3.0, 3.0])
+def test_hard_sigmoid_gradient_matches_jax_at_the_clip_edges(x):
+    want = float(jax.grad(jax_vnets.hard_sigmoid)(jnp.float32(x)))
+    t = torch.tensor(x, dtype=torch.float32, requires_grad=True)
+    lstm.hard_sigmoid(t).backward()
+    assert t.grad.item() == want
+    # the rule the backward kernel (and its plain version) applies
+    assert lstm.hard_sigmoid_grad(torch.tensor(x)).item() == want
+    if x in (-2.5, 2.5):
+        assert want == pytest.approx(0.1)
+
+
+def test_plain_kernel_versions_agree_with_autograd():
+    """lstm_scan_bwd's plain version on both gradient inputs at once, a
+    mixed batch of directions, against autograd of the plain loop."""
+    rng = np.random.RandomState(3)
+    n_seq, units = 4, 2
+    xw = torch.tensor(rng.randn(n_seq, T, B, 4 * units).astype(np.float32),
+                      requires_grad=True)
+    wh = torch.tensor(rng.randn(n_seq, units, 4 * units).astype(np.float32))
+    h, h_last, zs, c = lstm_cuda.lstm_scan_fwd(xw.detach(), wh, dirs=2)
+    rev = lstm.reverse_mask(False, n_seq, 2)
+    want = lstm.lstm_scan_reference(xw, wh, rev, True)
+    np.testing.assert_array_equal(h.numpy(), want.detach().numpy())
+    np.testing.assert_array_equal(
+        h_last.numpy(),
+        lstm.lstm_scan_reference(xw, wh, rev, False).detach().numpy())
+    dh_seq = torch.tensor(rng.randn(*h.shape).astype(np.float32))
+    dh_last = torch.tensor(rng.randn(*h_last.shape).astype(np.float32))
+    loss = (want * dh_seq).sum() + (
+        lstm.lstm_scan_reference(xw, wh, rev, False) * dh_last).sum()
+    want_dz, = torch.autograd.grad(loss, xw)
+    dz = lstm_cuda.lstm_scan_bwd(dh_seq, dh_last, zs, c, wh, dirs=2)
+    np.testing.assert_allclose(dz.numpy(), want_dz.numpy(), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_wrappers_check_their_inputs_and_never_fall_back():
+    xw = torch.zeros((2, T, B, 16))
+    wh = torch.zeros((2, 4, 16))
+    with pytest.raises(TypeError):
+        lstm_cuda.lstm_scan_fwd(xw.double(), wh, 2)
+    with pytest.raises(ValueError):
+        lstm_cuda.lstm_scan_fwd(xw, torch.zeros((2, 4, 12)), 2)
+    with pytest.raises(ValueError):
+        lstm_cuda.lstm_scan_fwd(xw, wh, 3)
+    # a tensor off the CPU goes to the kernel, which this machine cannot
+    # build: it raises rather than running the plain loop
+    with pytest.raises(RuntimeError, match="nvcc"):
+        lstm_cuda.lstm_scan_fwd(xw.to("meta"), wh.to("meta"), 2)
+    assert lstm_cuda.fwd_launches == lstm_cuda.bwd_launches == 0
