@@ -66,12 +66,15 @@ Phases (any failure raises and the script exits non-zero):
     ``lstm_scan_bwd``) through their autograd Function against the plain
     loop on the card, at the variant paths' shapes (T = 1,280): the
     iwganlstm critic (U = 4, in 1, 128 rows, 1 and 6 folds; a critic
-    update's 384 rows) and the lstm classifier's three layers (U = 16, in
-    1 and 32, 60 and 128 rows, with and without return_sequences); outputs
-    within 1e-5, every gradient within rtol 1e-4 / atol 1e-6; CUDA-event
-    time of each kernel (20 calls back to back) beside the plain loop's
-    (host-bound), cuDNN's LSTM (a yardstick: it computes sigmoid gates) and
-    the bound.
+    update's 384 rows), the lstm classifier's three layers (U = 16, in 1
+    and 32, 60 and 128 rows, with and without return_sequences) and the
+    chain alone (U = 4, in 1, one row); outputs within 1e-5, every
+    gradient within rtol 1e-4 / atol 1e-6 (or no further from float64
+    than twice the plain loop); every compiled lanes-a-row variant of both
+    kernels bit for bit the wrapper's pick; CUDA-event time of each variant
+    (20 calls back to back) beside the plain loop's (host-bound, at the
+    critic update), cuDNN's LSTM (a yardstick: it computes sigmoid gates)
+    and the bound.
 17. The variant cells at full width: ``run_wgan_cell`` for iwgan and
     iwganlstm on modality 2 (7,200 x 1,200 -> 1,280, 6 folds stacked, 100
     % labels, seed 0) at the depths of ``artifacts/variant_ref.jsonl`` (the
@@ -1040,8 +1043,9 @@ LSTM_H_ATOL = 1e-5                        # h and logits vs the plain loop
 LSTM_GRAD_RTOL, LSTM_GRAD_ATOL = 1e-4, 1e-6
 # (label, folds, in, units, rows, return_sequences): the iwganlstm critic
 # (a generator update's 128 rows; a critic update's [lab | fake | unl] rows,
-# one launch) and the lstm classifier's three layers at 60 rows (1 % labels)
-# and 128 (its batch)
+# one launch), the lstm classifier's three layers at 60 rows (1 % labels)
+# and 128 (its batch), and the chain alone: one row a direction, a step's
+# latency with no throughput effects
 LSTM_SHAPES = (
     ("iwganlstm critic", 1, 1, 4, 128, False),
     ("iwganlstm critic", 6, 1, 4, 128, False),
@@ -1052,6 +1056,7 @@ LSTM_SHAPES = (
     ("lstm classifier layer 1", 1, 1, 16, 128, True),
     ("lstm classifier layer 2", 1, 32, 16, 128, True),
     ("lstm classifier layer 3", 1, 32, 16, 128, False),
+    ("chain alone", 1, 1, 4, 1, False),
 )
 MAIN_LSTM_SHAPE = 2   # the critic update: the kernels' numbers in the JSON line
 PLAIN_TIMED = (MAIN_LSTM_SHAPE,)  # the plain loop is timed here only (~3 s a run)
@@ -1146,11 +1151,66 @@ def cudnn_lstm_ms(dev, folds, in_dim, units, rows):
     return fwd, stream_ms(both) - fwd
 
 
+def lstm_projection(params, x, units, rows):
+    """The biLSTM layer's (xw (S, T, B, 4U), wh (S, U, 4U)) on (F, B, T,
+    in) inputs, xw by one matmul as ``LstmScan`` makes it where in > 1."""
+    with torch.no_grad():
+        wx, wh, b = lstm._both(params["lstm"])
+        xw = torch.matmul(x.transpose(1, 2).unsqueeze(1), wx.unsqueeze(2))
+        n_seq = 2 * x.shape[0]
+        return ((xw + b[:, :, None, None]).reshape(n_seq, VARIANT_T, rows,
+                                                   4 * units),
+                wh.reshape(n_seq, units, 4 * units))
+
+
+def lstm_kernel_calls(dev, params, x, units, rows, rs):
+    """The two wrapper calls ``LstmScan`` makes for this layer, on the
+    saved tensors of one forward: (fwd(lanes), bwd(lanes)). Where in = 1
+    the forward takes x, wx and b (the fused projection), else xw from one
+    matmul."""
+    n_seq = 2 * x.shape[0]
+    xw, wh = lstm_projection(params, x, units, rows)
+    with torch.no_grad():
+        if x.shape[-1] == 1:
+            wx, _, b = lstm._both(params["lstm"])
+            inputs = dict(xw=None, x=x[..., 0].transpose(1, 2).contiguous(),
+                          wx=wx.reshape(n_seq, 4 * units).contiguous(),
+                          b=b.reshape(n_seq, 4 * units).contiguous())
+        else:
+            inputs = dict(xw=xw)
+        _, _, zs, c = lstm_cuda.lstm_scan_fwd(wh=wh, dirs=2, **inputs)
+        dh = torch.randn((n_seq, rows, units), device=dev)
+        dh_seq = (torch.randn((n_seq, VARIANT_T, rows, units), device=dev)
+                  if rs else None)
+
+    def fwd(lanes):
+        with torch.no_grad():
+            return lstm_cuda.lstm_scan_fwd(wh=wh, dirs=2, lanes=lanes,
+                                           **inputs)
+
+    def bwd(lanes):
+        with torch.no_grad():
+            return lstm_cuda.lstm_scan_bwd(dh_seq, None if rs else dh, zs, c,
+                                           wh, 2, lanes=lanes)
+
+    return fwd, bwd
+
+
+def same_bits(a, b):
+    """Two kernel results (tensors or tuples of them, None where not
+    written) are equal bit for bit."""
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    return all((x is None and y is None) or torch.equal(x, y)
+               for x, y in zip(a, b))
+
+
 def lstm_kernels_vs_plain(dev):
     """Phase 16: both kernels through the autograd Function against the
-    plain loop on the card, at the variant paths' shapes; device times of
-    the kernels, the plain loop and cuDNN's LSTM; the bound. Returns the
-    JSON fields of both kernels."""
+    plain loop on the card, at the variant paths' shapes; every compiled
+    lanes-a-row variant of both, bit for bit against the wrapper's pick,
+    and its CUDA-event time; the plain loop and cuDNN's LSTM beside them;
+    the bound. Returns the JSON fields of both kernels."""
     worst_h = worst_g = 0.0
     timing = {}
     for k, (label, folds, in_dim, units, rows, rs) in enumerate(LSTM_SHAPES):
@@ -1190,23 +1250,22 @@ def lstm_kernels_vs_plain(dev):
             g_err = max(g_err, err)
         worst_h, worst_g = max(worst_h, h_err), max(worst_g, g_err)
 
-        # the kernels alone, on the saved tensors of one forward
+        # the kernels alone, every lanes-a-row variant, on the saved
+        # tensors of one forward: bit for bit the wrapper's pick
         n_seq = 2 * folds
-        with torch.no_grad():
-            wx, wh, b = lstm._both(params["lstm"])
-            xw = (torch.matmul(x.transpose(1, 2).unsqueeze(1), wx.unsqueeze(2))
-                  + b[:, :, None, None]).reshape(n_seq, VARIANT_T, rows,
-                                                 4 * units)
-            wh = wh.reshape(n_seq, units, 4 * units)
-            _, _, zs, c = lstm_cuda.lstm_scan_fwd(xw, wh, 2)
-            dh = torch.randn((n_seq, rows, units), device=dev)
-            dh_seq = (torch.randn((n_seq, VARIANT_T, rows, units), device=dev)
-                      if rs else None)
-            fwd_ms = stream_ms(lambda: lstm_cuda.lstm_scan_fwd(xw, wh, 2))
-            bwd_ms = stream_ms(lambda: lstm_cuda.lstm_scan_bwd(
-                dh_seq, None if rs else dh, zs, c, wh, 2))
+        fwd, bwd = lstm_kernel_calls(dev, params, x, units, rows, rs)
+        pick = lstm_cuda.default_lanes(units, n_seq, rows)
+        want = (fwd(pick), bwd(pick))
+        lanes_ms = {}
+        for lanes in lstm_cuda.LANES[units]:
+            assert same_bits(fwd(lanes), want[0]), (name, "fwd", lanes)
+            assert same_bits(bwd(lanes), want[1]), (name, "bwd", lanes)
+            lanes_ms[lanes] = (stream_ms(lambda: fwd(lanes)),
+                               stream_ms(lambda: bwd(lanes)))
+        fwd_ms, bwd_ms = lanes_ms[pick]
         plain = (None, None)
         if k in PLAIN_TIMED:  # host-bound: the device idles between steps
+            xw, wh = lstm_projection(params, x, units, rows)
             rev = lstm.reverse_mask(False, n_seq, 2, dev)
             xg = xw.detach().requires_grad_()
 
@@ -1219,36 +1278,46 @@ def lstm_kernels_vs_plain(dev):
                     xw, wh, rev, rs), runs=1, warmup=0)
             plain = (p_fwd, stream_ms(plain_both, runs=1, warmup=0) - p_fwd)
         lib = cudnn_lstm_ms(dev, folds, in_dim, units, rows)
-        bounds = [lstm_bound(n_seq, VARIANT_T, rows, in_dim, units, rs, bwd)
-                  for bwd in (False, True)]
+        bounds = [lstm_bound(n_seq, VARIANT_T, rows, in_dim, units, rs, bwd_)
+                  for bwd_ in (False, True)]
         timing[k] = {"fwd": (fwd_ms, plain[0], lib[0], bounds[0]),
                      "bwd": (bwd_ms, plain[1], lib[1], bounds[1])}
         print("phase 16: %s: output max_abs_err=%r (atol %g), gradients "
               "max_abs_err=%r (rtol %g, atol %g%s); CUDA-event ms a call "
-              "(%d kernel and cuDNN calls back to back, one plain loop): "
-              "forward kernel %.4f ms (%.1f ns a step), plain loop %s, "
-              "cuDNN %.4f ms, bound %.4f ms (%s); backward kernel %.4f ms "
-              "(%.1f ns a step), plain loop %s, cuDNN %.4f ms, bound %.4f ms "
-              "(%s)" % (
+              "(%d kernel and cuDNN calls back to back, one plain loop), "
+              "%d lanes a row (the wrapper's pick): forward kernel %.4f ms "
+              "(%.1f ns a step), plain loop %s, cuDNN %.4f ms (a "
+              "yardstick: sigmoid gates), bound %.4f ms (%s; the kernel at "
+              "%.1f %%); backward kernel %.4f ms (%.1f ns a step), plain "
+              "loop %s, cuDNN %.4f ms, bound %.4f ms (%s; %.1f %%)" % (
                   name, h_err, LSTM_H_ATOL, g_err, LSTM_GRAD_RTOL,
                   LSTM_GRAD_ATOL,
                   "; past it, within twice the plain loop's distance from "
                   "float64: " + ", ".join(by_f64) if by_f64 else "", RUNS,
-                  fwd_ms, 1e6 * fwd_ms / VARIANT_T, fmt_ms(plain[0]),
-                  lib[0], *bounds[0], bwd_ms, 1e6 * bwd_ms / VARIANT_T,
-                  fmt_ms(plain[1]), lib[1], *bounds[1]))
+                  pick, fwd_ms, 1e6 * fwd_ms / VARIANT_T, fmt_ms(plain[0]),
+                  lib[0], *bounds[0], 100 * bounds[0][0] / fwd_ms, bwd_ms,
+                  1e6 * bwd_ms / VARIANT_T, fmt_ms(plain[1]), lib[1],
+                  *bounds[1], 100 * bounds[1][0] / bwd_ms))
+        print("phase 16: %s: lanes a row, every variant bit for bit the "
+              "pick's: %s" % (name, "; ".join(
+                  "%d: forward %.4f ms (%.1f ns a step), backward %.4f ms "
+                  "(%.1f ns a step)" % (lanes, f, 1e6 * f / VARIANT_T, b_,
+                                        1e6 * b_ / VARIANT_T)
+                  for lanes, (f, b_) in lanes_ms.items())))
     main = timing[MAIN_LSTM_SHAPE]
+    # no PyTorch call computes this function (cuDNN's LSTM has sigmoid
+    # gates, Keras's hard_sigmoid), so library_ms is null
     return {
         "lstm_scan_fwd": dict(max_abs_err=worst_h, ms=main["fwd"][0],
                               plain_ms=main["fwd"][1],
                               bound_ms=main["fwd"][3][0],
                               bound_by=main["fwd"][3][1],
-                              library_ms=main["fwd"][2]),
+                              library_ms=None),
         "lstm_scan_bwd": dict(max_abs_err=worst_g, ms=main["bwd"][0],
                               plain_ms=main["bwd"][1],
                               bound_ms=main["bwd"][3][0],
                               bound_by=main["bwd"][3][1],
-                              library_ms=main["bwd"][2]),
+                              library_ms=None),
     }
 
 

@@ -10,25 +10,53 @@
 // i*tanh(g); h = o*tanh(c); a reverse sequence walks t = T-1 ... 0 and its
 // outputs stay time-aligned.
 //
-// What bounds it: the T dependent steps of each sequence, not bytes or
-// FLOPs. A step is a few dozen FMAs, two tanhf and U shuffles, but each
-// needs the previous step's h. So everything a step needs stays on the SM:
-// the recurrent weights in registers (4U floats a thread), h and c in
-// registers, h broadcast within the sequence's U lanes by __shfl_sync; the
-// step's inputs are loaded kAhead steps before they are needed, so the
-// load latency leaves the dependent chain; and every sequence of every
-// fold and direction runs in the same launch, one pass per launch.
+// What bounds them on an H100. Each of the S x B sequence rows is a chain of
+// T dependent steps, and a warp walks its rows one step at a time. At small
+// launches (the iwganlstm generator update's 12 x 128 rows, one row alone)
+// a step's latency sets the time: two tanhf in series (each MUFU.EX2 then
+// MUFU.RCP) and a shuffle in the forward, a 16-term sum behind 16 shuffles
+// in the backward; ~125 and ~160 ns a step. At a critic update (12 x 384)
+// the bytes do: the forward stores h, c and the gates (96 B a cell), the
+// backward reads the gates and cells and writes dz (144 B a cell). The
+// design keeps everything but the chain off the step:
+// - Lanes a row (LPR, a template parameter: 2 or 4 at U = 4, 16 at
+//   U = 16). Each lane holds U / LPR units: their h, c and recurrent
+//   weights in registers; h (and the backward's dz) is gathered from the
+//   row's lanes by __shfl_sync (independent shuffles). Fewer lanes a row
+//   mean fewer warps and shuffles but more instructions a lane: the
+//   wrapper picks by the launch's rows. (1 lane a row at U = 4 and 8 at
+//   U = 16 were slower at every shape measured.)
+// - No global load on the chain: each block (one warp, 32 / LPR rows)
+//   stages its step inputs a chunk of steps at a time into shared memory
+//   with cp.async, double-buffered, the next chunk in flight while this one
+//   is walked. The stores are 4 * (U / LPR)-byte vectors of a lane's
+//   contiguous units, coalesced across the warp, and nothing waits for
+//   them; no branch or 64-bit index product sits in the step (offsets move
+//   a step at a time; lanes past the last row redo it).
+// - The input projection is fused where in = 1 (the iwganlstm critic, the
+//   lstm classifier's first layer): the forward reads x, one float a cell,
+//   with wx and b in registers, and rounds x * wx + b as the matmul did.
+// - Sums: at U = 16, h @ wh in 4 partial sums added to the input last and
+//   the backward's dz @ wh^T in two partial sums a gate, a quarter and an
+//   eighth as deep as one chain each. At U = 4 both stay one chain in unit
+//   order (the forward's is 4 deep either way), the order the first
+//   version of these kernels used: the iwganlstm critic's outputs and
+//   gradients, and so the trained cells that chip_smoke.py holds to the
+//   JAX record, stay bit for bit those; dx stays a product of dz outside
+//   for the same reason.
+// Every lanes-a-row variant computes the same sums in the same order, so
+// they agree bit for bit.
 //
 // Layout: S = folds x dirs sequences (s = fold * dirs + d; with dirs = 2,
-// d = 1 runs backwards), U lanes of a warp per sequence row, one lane per
-// unit. All tensors are float32, contiguous, time-aligned:
-//   xw (S, T, B, 4U)  input projection x @ wx + b (made outside, by cuBLAS)
+// d = 1 runs backwards). All tensors are float32, contiguous, time-aligned:
+//   x  (F, T, B)        the input where in = 1; wx, b (S, 4U)
+//   xw (S, T, B, 4U)    otherwise: x @ wx + b (made outside, by cuBLAS)
 //   wh (S, U, 4U)
-//   h  (S, T, B, U)   outputs;  h_last (S, B, U) final states
-//   zs (S, T, B, 4U)  pre-activations of i, f, o; tanh(g) in the c slot
-//   c  (S, T, B, U)   cells
-//   dz (S, T, B, 4U)  gate gradients (the backward's output); dwh, dwx, db
-//                     and dx are products of it, taken outside (no atomics)
+//   h  (S, T, B, U)     outputs;  h_last (S, B, U) final states
+//   zs (S, T, B, 4U)    pre-activations of i, f, o; tanh(g) in the c slot
+//   c  (S, T, B, U)     cells
+//   dz (S, T, B, 4U)    gate gradients (the backward's output); dx, dwh, dwx
+//                       and db are products of it, taken outside (no atomics)
 // Numerics: fp32, tanhf, no fast math; hard_sigmoid's products and sums
 // are rounded one at a time, as the plain PyTorch version computes them.
 
@@ -37,11 +65,8 @@
 
 namespace {
 
-constexpr int kThreads = 64;  // threads a block: 64 / U sequence rows
-// steps of input loaded ahead of their use: 2 was faster than 8 and 32 on
-// an H100 (the chain of a step, not the load latency, sets the pace, and a
-// deeper unrolled ring only adds instructions)
-constexpr int kAhead = 2;
+constexpr int kWarp = 32;               // threads a block: one warp
+constexpr int kChunkBytes = 16 * 1024;  // the most one staged chunk may take
 
 __device__ __forceinline__ float hard_sigmoid(float z) {
   const float y = __fadd_rn(__fmul_rn(0.2f, z), 0.5f);
@@ -60,232 +85,498 @@ __device__ __forceinline__ int time_at(int p, int steps, bool rev) {
   return rev ? steps - 1 - p : p;
 }
 
-template <int U>
-__global__ void __launch_bounds__(kThreads)
-lstm_scan_fwd(const float* __restrict__ xw, const float* __restrict__ wh,
-              int steps, int rows, int dirs, int reverse,
-              float* __restrict__ h_seq, float* __restrict__ h_last,
-              float* __restrict__ zs, float* __restrict__ c_seq) {
-  constexpr int G = 4 * U;
-  const int s = blockIdx.y;
-  const int u = threadIdx.x % U;
-  const int row = (blockIdx.x * kThreads + threadIdx.x) / U;
-  // lanes past the last row run a copy of it in step with their warp (the
-  // shuffles need every lane) and store nothing
-  const bool active = row < rows;
-  const int b = active ? row : rows - 1;
-  const bool rev = dirs == 2 ? (s & 1) != 0 : reverse != 0;
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
 
-  float w[4][U];  // w[g][k] = wh[s][k][g*U + u]: this unit's columns
-  const float* whs = wh + (size_t)s * U * G;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)),
+               "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// every group but the newest has landed
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// V consecutive floats as one access (V = 2: 8-byte aligned)
+template <int V>
+__device__ __forceinline__ void load_vec(float (&v)[V], const float* src) {
+  if constexpr (V == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(src);
+    v[0] = a.x; v[1] = a.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = src[i];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec(float* dst, const float (&v)[V]) {
+  if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) dst[i] = v[i];
+  }
+}
+
+// copy(i, piece) for every step i < n of a staged chunk and each of its P
+// pieces, spread over the warp's lanes (each lane keeps its pieces)
+template <int P, class F>
+__device__ __forceinline__ void for_pieces(int lane, int n, F&& copy) {
+  if constexpr (P >= kWarp) {
+    static_assert(P % kWarp == 0, "whole pieces a lane");
+#pragma unroll
+    for (int k = 0; k < P / kWarp; ++k)
+      for (int i = 0; i < n; ++i) copy(i, lane + k * kWarp);
+  } else {
+    static_assert(kWarp % P == 0, "whole steps a pass");
+    for (int i = lane / P; i < n; i += kWarp / P) copy(i, lane % P);
+  }
+}
+
+// steps a staged chunk holds: the most (up to 32, a power of two) whose
+// step_bytes each fit kChunkBytes
+constexpr int chunk_steps(int step_bytes) {
+  int n = 32;
+  while (n > 1 && n * step_bytes > kChunkBytes) n /= 2;
+  return n;
+}
+
+// the shapes of a (U, LPR) variant: units a lane, rows a block, and the
+// staged chunks of the forward (FUSED: x, one float a row and step; else
+// the row's 4U inputs, padded by 4 floats so that a warp's 16-byte reads of
+// 32 rows fall in distinct banks) and of the backward (the row's 4U saved
+// gates, padded, then its U previous cells and U output gradients)
+template <int U, int LPR, bool FUSED>
+struct Layout {
+  static_assert(U % 4 == 0 && U % LPR == 0 && kWarp % LPR == 0, "layout");
+  static constexpr int G = 4 * U;
+  static constexpr int UPL = U / LPR;
+  static constexpr int RPB = kWarp / LPR;
+  static constexpr int IN_LD = FUSED ? 1 : G + 4;
+  static constexpr int FWD_TC = chunk_steps(RPB * IN_LD * 4);
+  static constexpr int FWD_SMEM = 2 * FWD_TC * RPB * IN_LD * 4;
+  static constexpr int Z_LD = G + 4;
+  static constexpr int BWD_STEP = RPB * (Z_LD + 2 * U);  // floats a step
+  static constexpr int BWD_TC = chunk_steps(BWD_STEP * 4);
+  static constexpr int BWD_SMEM = 2 * BWD_TC * BWD_STEP * 4;
+};
+
+struct FwdArgs {
+  const float* x;    // (F, T, B) where in = 1, else null
+  const float* wx;   // (S, 4U) where in = 1
+  const float* b;    // (S, 4U) where in = 1
+  const float* xw;   // (S, T, B, 4U) where in > 1, else null
+  const float* wh;
+  int steps, rows, dirs, reverse;
+  float* h_seq;      // may be null
+  float* h_last;
+  float* zs;         // may be null (then so is c_seq)
+  float* c_seq;
+};
+
+// SAVE: h, c and the gates of every step are stored (a forward that
+// autograd will walk back); otherwise only h, where h_seq is given
+template <int U, int LPR, bool FUSED, bool SAVE>
+__global__ void __launch_bounds__(kWarp)
+lstm_scan_fwd(const FwdArgs a) {
+  using L = Layout<U, LPR, FUSED>;
+  constexpr int G = L::G, UPL = L::UPL, RPB = L::RPB, LD = L::IN_LD;
+  constexpr int TC = L::FWD_TC;
+  constexpr int NP = U >= 16 ? 4 : 1;  // partial sums of h @ wh
+  extern __shared__ __align__(16) float smem[];
+
+  const int lane = threadIdx.x;
+  const int r = lane / LPR, q = lane % LPR;
+  const int s = blockIdx.y;
+  const int T = a.steps, B = a.rows;
+  const int row0 = blockIdx.x * RPB;
+  // lanes past the last row run a copy of it in step with their warp (the
+  // shuffles need every lane): the same values to the same addresses
+  const int row = min(row0 + r, B - 1);
+  const bool rev = a.dirs == 2 ? (s & 1) != 0 : a.reverse != 0;
+  const int u0 = q * UPL;
+
+  float w[4][UPL][U];  // w[g][j][k] = wh[s][k][g*U + u0 + j]
+  const float* whs = a.wh + (size_t)s * U * G;
 #pragma unroll
   for (int g = 0; g < 4; ++g)
 #pragma unroll
-    for (int k = 0; k < U; ++k) w[g][k] = whs[k * G + g * U + u];
-
-  const size_t gstep = (size_t)rows * G;   // one step of xw, zs
-  const size_t ustep = (size_t)rows * U;   // one step of h, c
-  const float* xs = xw + (size_t)s * steps * gstep + (size_t)b * G + u;
-  float* zp = zs ? zs + (size_t)s * steps * gstep + (size_t)b * G + u : nullptr;
-  const size_t hoff = (size_t)s * steps * ustep + (size_t)b * U + u;
-
-  float ring[kAhead][4];
+    for (int j = 0; j < UPL; ++j)
 #pragma unroll
-  for (int j = 0; j < kAhead; ++j) {
-    if (j < steps) {
-      const float* src = xs + (size_t)time_at(j, steps, rev) * gstep;
+      for (int k = 0; k < U; ++k) w[g][j][k] = whs[k * G + g * U + u0 + j];
+  float wxr[4][UPL], br[4][UPL];
+  if constexpr (FUSED) {
 #pragma unroll
-      for (int g = 0; g < 4; ++g) ring[j][g] = __ldg(src + g * U);
-    }
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int j = 0; j < UPL; ++j) {
+        wxr[g][j] = a.wx[(size_t)s * G + g * U + u0 + j];
+        br[g][j] = a.b[(size_t)s * G + g * U + u0 + j];
+      }
   }
 
-  float h = 0.0f, c = 0.0f;
-  for (int p0 = 0; p0 < steps; p0 += kAhead) {
+  // stage processing steps [p0, p0 + TC) of the block's rows into buffer st
+  auto stage = [&](int st, int p0) {
+    const int n = min(TC, T - p0);
+    float* dst = smem + st * TC * RPB * LD;
+    if constexpr (FUSED) {  // a piece: one row's x
+      const float* xs = a.x + (size_t)(s / a.dirs) * T * B;
+      for_pieces<RPB>(lane, n, [&](int i, int rr) {
+        cp_async4(dst + i * RPB + rr,
+                  xs + (size_t)time_at(p0 + i, T, rev) * B + min(row0 + rr, B - 1));
+      });
+    } else {  // a piece: 16 bytes of one row's inputs
+      constexpr int V = G / 4;
+      for_pieces<RPB * V>(lane, n, [&](int i, int e) {
+        const int rr = e / V, v = e % V;
+        cp_async16(dst + (i * RPB + rr) * LD + 4 * v,
+                   a.xw + (((size_t)s * T + time_at(p0 + i, T, rev)) * B +
+                           min(row0 + rr, B - 1)) * G + 4 * v);
+      });
+    }
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+
+  // offsets of this lane's outputs at the step's time, moved a step at a
+  // time (a reverse sequence walks down)
+  const ptrdiff_t du = (rev ? -1 : 1) * (ptrdiff_t)B * U, dg = 4 * du;
+  const int t0 = rev ? T - 1 : 0;
+  ptrdiff_t ou = ((ptrdiff_t)s * T + t0) * B * U + (ptrdiff_t)row * U + u0;
+  ptrdiff_t og = ((ptrdiff_t)s * T + t0) * B * G + (ptrdiff_t)row * G + u0;
+
+  float h[UPL], c[UPL];
 #pragma unroll
-    for (int j = 0; j < kAhead; ++j) {
-      const int p = p0 + j;
-      if (p < steps) {  // the same for every lane of the warp
-        const int t = time_at(p, steps, rev);
-        float z[4];
+  for (int j = 0; j < UPL; ++j) h[j] = c[j] = 0.0f;
+
+  stage(0, 0);
+  for (int p0 = 0, st = 0; p0 < T; p0 += TC, st ^= 1) {
+    stage(st ^ 1, p0 + TC);
+    cp_async_wait_one();
+    __syncwarp();
+    const float* in = smem + st * TC * RPB * LD + r * LD;
+    const int n = min(TC, T - p0);
+#pragma unroll 2
+    for (int i = 0; i < n; ++i) {
+      float x_in[4][UPL];
+      if constexpr (FUSED) {
+        const float xv = in[i * RPB * LD];
 #pragma unroll
-        for (int g = 0; g < 4; ++g) z[g] = ring[j][g];
-        if (p + kAhead < steps) {
-          const float* src =
-              xs + (size_t)time_at(p + kAhead, steps, rev) * gstep;
+        for (int g = 0; g < 4; ++g)
 #pragma unroll
-          for (int g = 0; g < 4; ++g) ring[j][g] = __ldg(src + g * U);
-        }
+          for (int j = 0; j < UPL; ++j)
+            x_in[g][j] = __fadd_rn(__fmul_rn(xv, wxr[g][j]), br[g][j]);
+      } else {
 #pragma unroll
-        for (int k = 0; k < U; ++k) {
-          const float hk = __shfl_sync(0xffffffffu, h, k, U);
+        for (int g = 0; g < 4; ++g) load_vec<UPL>(x_in[g], in + i * RPB * LD + g * U + u0);
+      }
+      float hall[U];
 #pragma unroll
-          for (int g = 0; g < 4; ++g) z[g] = fmaf(hk, w[g][k], z[g]);
-        }
-        const float tg = tanhf(z[2]);
-        c = __fadd_rn(__fmul_rn(hard_sigmoid(z[1]), c),
-                      __fmul_rn(hard_sigmoid(z[0]), tg));
-        h = __fmul_rn(hard_sigmoid(z[3]), tanhf(c));
-        if (active) {
-          const size_t o = hoff + (size_t)t * ustep;
-          if (h_seq) h_seq[o] = h;
-          if (c_seq) c_seq[o] = c;
-          if (zp) {
-            float* dst = zp + (size_t)t * gstep;
-            dst[0] = z[0];
-            dst[U] = z[1];
-            dst[2 * U] = tg;
-            dst[3 * U] = z[3];
+      for (int k = 0; k < U; ++k)
+        hall[k] = __shfl_sync(0xffffffffu, h[k % UPL], k / UPL, LPR);
+      float z[4][UPL];
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int j = 0; j < UPL; ++j) {
+          if constexpr (NP == 1) {  // one chain from the input, k = 0 ... U-1
+            z[g][j] = x_in[g][j];
+#pragma unroll
+            for (int k = 0; k < U; ++k) z[g][j] = fmaf(hall[k], w[g][j][k], z[g][j]);
+          } else {
+            float part[NP];
+#pragma unroll
+            for (int k = 0; k < NP; ++k) part[k] = __fmul_rn(hall[k], w[g][j][k]);
+#pragma unroll
+            for (int k = NP; k < U; ++k) part[k % NP] = fmaf(hall[k], w[g][j][k], part[k % NP]);
+#pragma unroll
+            for (int wd = NP / 2; wd > 0; wd /= 2)
+#pragma unroll
+              for (int k = 0; k < wd; ++k) part[k] = __fadd_rn(part[k], part[k + wd]);
+            z[g][j] = __fadd_rn(x_in[g][j], part[0]);
           }
         }
+#pragma unroll
+      for (int j = 0; j < UPL; ++j) {
+        const float tg = tanhf(z[2][j]);
+        c[j] = __fadd_rn(__fmul_rn(hard_sigmoid(z[1][j]), c[j]),
+                         __fmul_rn(hard_sigmoid(z[0][j]), tg));
+        h[j] = __fmul_rn(hard_sigmoid(z[3][j]), tanhf(c[j]));
+        z[2][j] = tg;  // the saved set holds tanh(g) in the c slot
       }
+      if constexpr (SAVE) {
+        store_vec<UPL>(a.h_seq + ou, h);
+        store_vec<UPL>(a.c_seq + ou, c);
+#pragma unroll
+        for (int g = 0; g < 4; ++g) store_vec<UPL>(a.zs + og + g * U, z[g]);
+      } else if (a.h_seq) {
+        store_vec<UPL>(a.h_seq + ou, h);
+      }
+      ou += du;
+      og += dg;
     }
+    __syncwarp();  // every lane is done with buffer st before it is refilled
   }
-  if (active) h_last[((size_t)s * rows + b) * U + u] = h;
+  store_vec<UPL>(a.h_last + ((size_t)s * B + row) * U + u0, h);
 }
 
-template <int U>
-__global__ void __launch_bounds__(kThreads)
-lstm_scan_bwd(const float* __restrict__ dh_seq,
-              const float* __restrict__ dh_last, const float* __restrict__ zs,
-              const float* __restrict__ c_seq, const float* __restrict__ wh,
-              int steps, int rows, int dirs, int reverse,
-              float* __restrict__ dz) {
-  constexpr int G = 4 * U;
+struct BwdArgs {
+  const float* dh_seq;   // (S, T, B, U) or null
+  const float* dh_last;  // (S, B, U) or null
+  const float* zs;
+  const float* c_seq;
+  const float* wh;
+  int steps, rows, dirs, reverse;
+  float* dz;
+};
+
+// SEQ: dh_seq is given (the outputs of every step had a gradient)
+template <int U, int LPR, bool SEQ>
+__global__ void __launch_bounds__(kWarp)
+lstm_scan_bwd(const BwdArgs a) {
+  using L = Layout<U, LPR, false>;
+  constexpr int G = L::G, UPL = L::UPL, RPB = L::RPB, ZLD = L::Z_LD;
+  constexpr int TC = L::BWD_TC, STEP = L::BWD_STEP;
+  constexpr int NPG = 2;  // partial sums a gate of dz @ wh^T at U = 16
+  extern __shared__ __align__(16) float smem[];
+
+  const int lane = threadIdx.x;
+  const int r = lane / LPR, q = lane % LPR;
   const int s = blockIdx.y;
-  const int u = threadIdx.x % U;
-  const int row = (blockIdx.x * kThreads + threadIdx.x) / U;
-  const bool active = row < rows;
-  const int b = active ? row : rows - 1;
-  const bool rev = dirs == 2 ? (s & 1) != 0 : reverse != 0;
+  const int T = a.steps, B = a.rows;
+  const int row0 = blockIdx.x * RPB;
+  const int row = min(row0 + r, B - 1);  // as in the forward
+  const bool rev = a.dirs == 2 ? (s & 1) != 0 : a.reverse != 0;
+  const int u0 = q * UPL;
 
-  float w[4][U];  // w[g][j] = wh[s][u][g*U + j]: this unit's row
-  const float* whs = wh + (size_t)s * U * G + (size_t)u * G;
+  float w[UPL][4][U];  // w[j][g][m] = wh[s][u0 + j][g*U + m]: this lane's rows
+  const float* whs = a.wh + (size_t)s * U * G;
 #pragma unroll
-  for (int g = 0; g < 4; ++g)
+  for (int j = 0; j < UPL; ++j)
 #pragma unroll
-    for (int j = 0; j < U; ++j) w[g][j] = whs[g * U + j];
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int m = 0; m < U; ++m) w[j][g][m] = whs[(u0 + j) * G + g * U + m];
 
-  const size_t gstep = (size_t)rows * G;
-  const size_t ustep = (size_t)rows * U;
-  const size_t goff = (size_t)s * steps * gstep + (size_t)b * G + u;
-  const size_t uoff = (size_t)s * steps * ustep + (size_t)b * U + u;
-
-  // backward step q walks p = steps-1-q; a ring slot holds its four saved
-  // gates, the previous step's cell and the output gradient
-  float ring[kAhead][6];
-  auto load = [&](float* slot, int q) {
-    const int p = steps - 1 - q;
-    const int t = time_at(p, steps, rev);
-    const float* zsrc = zs + goff + (size_t)t * gstep;
-#pragma unroll
-    for (int g = 0; g < 4; ++g) slot[g] = __ldg(zsrc + g * U);
-    slot[4] = p > 0 ? __ldg(c_seq + uoff +
-                            (size_t)time_at(p - 1, steps, rev) * ustep)
-                    : 0.0f;
-    slot[5] = dh_seq ? __ldg(dh_seq + uoff + (size_t)t * ustep) : 0.0f;
+  const size_t ustep = (size_t)B * U, gstep = (size_t)B * G;
+  const size_t useq = (size_t)s * T * ustep, gseq = (size_t)s * T * gstep;
+  // a chunk: [TC][RPB][ZLD] gates, then [TC][RPB][U] previous cells, then
+  // [TC][RPB][U] output gradients; backward step q walks p = T-1-q
+  auto stage = [&](int st, int q0) {
+    const int n = min(TC, T - q0);
+    float* zb = smem + st * TC * STEP;
+    float* cb = zb + TC * RPB * ZLD;
+    float* db = cb + TC * RPB * U;
+    constexpr int VZ = G / 4, VU = U / 4;  // 16-byte pieces a row
+    for_pieces<RPB * VZ>(lane, n, [&](int i, int e) {
+      const int rr = e / VZ, v = e % VZ;
+      cp_async16(zb + (i * RPB + rr) * ZLD + 4 * v,
+                 a.zs + gseq + (size_t)time_at(T - 1 - (q0 + i), T, rev) * gstep +
+                     (size_t)min(row0 + rr, B - 1) * G + 4 * v);
+    });
+    for_pieces<RPB * VU>(lane, n, [&](int i, int e) {
+      const int rr = e / VU, v = e % VU, p = T - 1 - (q0 + i);
+      const size_t o = useq + (size_t)min(row0 + rr, B - 1) * U + 4 * v;
+      float* cd = cb + (i * RPB + rr) * U + 4 * v;
+      if (p > 0) {
+        cp_async16(cd, a.c_seq + o + (size_t)time_at(p - 1, T, rev) * ustep);
+      } else {
+        cd[0] = cd[1] = cd[2] = cd[3] = 0.0f;
+      }
+      if constexpr (SEQ)
+        cp_async16(db + (i * RPB + rr) * U + 4 * v,
+                   a.dh_seq + o + (size_t)time_at(p, T, rev) * ustep);
+    });
+    cp_async_commit();
   };
-#pragma unroll
-  for (int j = 0; j < kAhead; ++j)
-    if (j < steps) load(ring[j], j);
 
-  float c_t = steps > 0
-      ? __ldg(c_seq + uoff + (size_t)time_at(steps - 1, steps, rev) * ustep)
-      : 0.0f;
-  const float dh_end =
-      dh_last ? __ldg(dh_last + ((size_t)s * rows + b) * U + u) : 0.0f;
-  float dh_rec = 0.0f, dc = 0.0f;
-  for (int q0 = 0; q0 < steps; q0 += kAhead) {
+  float c_t[UPL], dh_rec[UPL], dc[UPL];
+  load_vec<UPL>(c_t, a.c_seq + useq + (size_t)time_at(T - 1, T, rev) * ustep +
+                         (size_t)row * U + u0);
 #pragma unroll
-    for (int j = 0; j < kAhead; ++j) {
-      const int q = q0 + j;
-      if (q < steps) {  // the same for every lane of the warp
-        const int t = time_at(steps - 1 - q, steps, rev);
-        const float zi = ring[j][0], zf = ring[j][1], tg = ring[j][2],
-                    zo = ring[j][3], c_prev = ring[j][4];
-        float dh = __fadd_rn(dh_rec, ring[j][5]);
-        if (q == 0 && dh_last) dh = __fadd_rn(dh, dh_end);
-        if (q + kAhead < steps) load(ring[j], q + kAhead);
+  for (int j = 0; j < UPL; ++j) dc[j] = dh_rec[j] = 0.0f;
+  // the final state's gradient enters at the first backward step, as the
+  // recurrent gradient does at every later one
+  if (a.dh_last) load_vec<UPL>(dh_rec, a.dh_last + ((size_t)s * B + row) * U + u0);
+  // offsets of this lane's outputs at the step's time: backward step q
+  // is at time_at(T-1-q), which walks down (up for a reverse sequence)
+  const int t0 = time_at(T - 1, T, rev);
+  const ptrdiff_t dtb = (rev ? 1 : -1) * (ptrdiff_t)B;
+  ptrdiff_t og = (ptrdiff_t)gseq + (ptrdiff_t)t0 * B * G + (ptrdiff_t)row * G + u0;
 
-        const float tc = tanhf(c_t);
-        dc = __fadd_rn(dc, __fmul_rn(__fmul_rn(dh, hard_sigmoid(zo)),
-                                     __fsub_rn(1.0f, __fmul_rn(tc, tc))));
-        float d[4];
-        d[0] = __fmul_rn(__fmul_rn(dc, tg), hard_sigmoid_grad(zi));
-        d[1] = __fmul_rn(__fmul_rn(dc, c_prev), hard_sigmoid_grad(zf));
-        d[2] = __fmul_rn(__fmul_rn(dc, hard_sigmoid(zi)),
-                         __fsub_rn(1.0f, __fmul_rn(tg, tg)));
-        d[3] = __fmul_rn(__fmul_rn(dh, tc), hard_sigmoid_grad(zo));
-        dc = __fmul_rn(dc, hard_sigmoid(zf));
-        if (active) {
-          float* dst = dz + goff + (size_t)t * gstep;
+  stage(0, 0);
+  for (int q0 = 0, st = 0; q0 < T; q0 += TC, st ^= 1) {
+    stage(st ^ 1, q0 + TC);
+    cp_async_wait_one();
+    __syncwarp();
+    const float* zb = smem + st * TC * STEP + r * ZLD;
+    const float* cb = smem + st * TC * STEP + TC * RPB * ZLD + r * U;
+    const float* db = cb + TC * RPB * U;
+    const int n = min(TC, T - q0);
+#pragma unroll 2
+    for (int i = 0; i < n; ++i) {
+      float zi[UPL], zf[UPL], tg[UPL], zo[UPL], c_prev[UPL], dh[UPL];
+      load_vec<UPL>(zi, zb + i * RPB * ZLD + u0);
+      load_vec<UPL>(zf, zb + i * RPB * ZLD + U + u0);
+      load_vec<UPL>(tg, zb + i * RPB * ZLD + 2 * U + u0);
+      load_vec<UPL>(zo, zb + i * RPB * ZLD + 3 * U + u0);
+      load_vec<UPL>(c_prev, cb + i * RPB * U + u0);
+      if constexpr (SEQ) {
+        load_vec<UPL>(dh, db + i * RPB * U + u0);
 #pragma unroll
-          for (int g = 0; g < 4; ++g) dst[g * U] = d[g];
+        for (int j = 0; j < UPL; ++j) dh[j] = __fadd_rn(dh_rec[j], dh[j]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < UPL; ++j) dh[j] = dh_rec[j];
+      }
+      float d[4][UPL];
+#pragma unroll
+      for (int j = 0; j < UPL; ++j) {
+        const float tc = tanhf(c_t[j]);
+        dc[j] = __fadd_rn(dc[j], __fmul_rn(__fmul_rn(dh[j], hard_sigmoid(zo[j])),
+                                           __fsub_rn(1.0f, __fmul_rn(tc, tc))));
+        d[0][j] = __fmul_rn(__fmul_rn(dc[j], tg[j]), hard_sigmoid_grad(zi[j]));
+        d[1][j] = __fmul_rn(__fmul_rn(dc[j], c_prev[j]), hard_sigmoid_grad(zf[j]));
+        d[2][j] = __fmul_rn(__fmul_rn(dc[j], hard_sigmoid(zi[j])),
+                            __fsub_rn(1.0f, __fmul_rn(tg[j], tg[j])));
+        d[3][j] = __fmul_rn(__fmul_rn(dh[j], tc), hard_sigmoid_grad(zo[j]));
+        dc[j] = __fmul_rn(dc[j], hard_sigmoid(zf[j]));
+        c_t[j] = c_prev[j];
+      }
+#pragma unroll
+      for (int g = 0; g < 4; ++g) store_vec<UPL>(a.dz + og + g * U, d[g]);
+      og += 4 * U * dtb;
+      // dh of the step before: dz_t @ wh^T for this lane's units. At U = 4
+      // one sum over the units and, within each, the gates (the first
+      // version's order: the iwganlstm critic's gradients stay bit for
+      // bit); at U = 16 two partial sums a gate, then the gates pairwise
+      if constexpr (U == 4) {
+        float acc[UPL];
+#pragma unroll
+        for (int j = 0; j < UPL; ++j) acc[j] = 0.0f;
+#pragma unroll
+        for (int m = 0; m < U; ++m)
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            const float dm = __shfl_sync(0xffffffffu, d[g][m % UPL], m / UPL, LPR);
+#pragma unroll
+            for (int j = 0; j < UPL; ++j) acc[j] = fmaf(dm, w[j][g][m], acc[j]);
+          }
+#pragma unroll
+        for (int j = 0; j < UPL; ++j) dh_rec[j] = acc[j];
+      } else {
+        float acc[UPL][4][NPG];
+#pragma unroll
+        for (int m = 0; m < U; ++m) {
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            const float dm = __shfl_sync(0xffffffffu, d[g][m % UPL], m / UPL, LPR);
+#pragma unroll
+            for (int j = 0; j < UPL; ++j) {
+              float& ac = acc[j][g][m % NPG];
+              ac = m < NPG ? __fmul_rn(dm, w[j][g][m]) : fmaf(dm, w[j][g][m], ac);
+            }
+          }
         }
-        // dh of the step before: dz_t @ wh^T, this unit's entry
-        float acc = 0.0f;
 #pragma unroll
-        for (int j2 = 0; j2 < U; ++j2) {
+        for (int j = 0; j < UPL; ++j) {
+          float pg[4];
 #pragma unroll
-          for (int g = 0; g < 4; ++g)
-            acc = fmaf(__shfl_sync(0xffffffffu, d[g], j2, U), w[g][j2], acc);
+          for (int g = 0; g < 4; ++g) {
+            pg[g] = acc[j][g][0];
+#pragma unroll
+            for (int k = 1; k < NPG; ++k) pg[g] = __fadd_rn(pg[g], acc[j][g][k]);
+          }
+          dh_rec[j] = __fadd_rn(__fadd_rn(pg[0], pg[1]), __fadd_rn(pg[2], pg[3]));
         }
-        dh_rec = acc;
-        c_t = c_prev;
       }
     }
+    __syncwarp();
   }
 }
 
-template <int U>
-int launch_fwd(const float* xw, const float* wh, int n_seq, int steps,
-               int rows, int dirs, int reverse, float* h_seq, float* h_last,
-               float* zs, float* c_seq, cudaStream_t stream) {
-  const dim3 grid((rows * U + kThreads - 1) / kThreads, n_seq);
-  lstm_scan_fwd<U><<<grid, kThreads, 0, stream>>>(
-      xw, wh, steps, rows, dirs, reverse, h_seq, h_last, zs, c_seq);
+template <int U, int LPR, bool FUSED>
+int launch_fwd(const FwdArgs& a, int n_seq, cudaStream_t stream) {
+  using L = Layout<U, LPR, FUSED>;
+  auto kernel = a.zs ? lstm_scan_fwd<U, LPR, FUSED, true> : lstm_scan_fwd<U, LPR, FUSED, false>;
+  if (L::FWD_SMEM > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::FWD_SMEM);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((a.rows + L::RPB - 1) / L::RPB, n_seq);
+  kernel<<<grid, kWarp, L::FWD_SMEM, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int U>
-int launch_bwd(const float* dh_seq, const float* dh_last, const float* zs,
-               const float* c_seq, const float* wh, int n_seq, int steps,
-               int rows, int dirs, int reverse, float* dz,
-               cudaStream_t stream) {
-  const dim3 grid((rows * U + kThreads - 1) / kThreads, n_seq);
-  lstm_scan_bwd<U><<<grid, kThreads, 0, stream>>>(
-      dh_seq, dh_last, zs, c_seq, wh, steps, rows, dirs, reverse, dz);
+template <int U, int LPR>
+int launch_bwd(const BwdArgs& a, int n_seq, cudaStream_t stream) {
+  using L = Layout<U, LPR, false>;
+  auto kernel = a.dh_seq ? lstm_scan_bwd<U, LPR, true> : lstm_scan_bwd<U, LPR, false>;
+  if (L::BWD_SMEM > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BWD_SMEM);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((a.rows + L::RPB - 1) / L::RPB, n_seq);
+  kernel<<<grid, kWarp, L::BWD_SMEM, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <bool FUSED>
+int dispatch_fwd(const FwdArgs& a, int n_seq, int units, int lanes, cudaStream_t st) {
+  switch (units * 100 + lanes) {
+    case 402: return launch_fwd<4, 2, FUSED>(a, n_seq, st);
+    case 404: return launch_fwd<4, 4, FUSED>(a, n_seq, st);
+    case 1616: return launch_fwd<16, 16, FUSED>(a, n_seq, st);
+    default: return -1;
+  }
+}
+
+int dispatch_bwd(const BwdArgs& a, int n_seq, int units, int lanes, cudaStream_t st) {
+  switch (units * 100 + lanes) {
+    case 402: return launch_bwd<4, 2>(a, n_seq, st);
+    case 404: return launch_bwd<4, 4>(a, n_seq, st);
+    case 1616: return launch_bwd<16, 16>(a, n_seq, st);
+    default: return -1;
+  }
 }
 
 }  // namespace
 
-// The forward: h_seq, zs and c_seq may be null (not written); h_last is
-// always written. Returns a cudaError_t, or -1 for a unit count the kernels
-// are not compiled for (the variant zoo's are 4, the iwganlstm critic, and
-// 16, the lstm classifier).
-extern "C" int mrgan_lstm_scan_fwd(const float* xw, const float* wh,
-                                   int n_seq, int steps, int rows, int units,
-                                   int dirs, int reverse, float* h_seq,
-                                   float* h_last, float* zs, float* c_seq,
-                                   void* stream) {
+// The forward. The input is x, wx and b (in = 1: the projection is fused)
+// or, with x null, xw. zs and c_seq are both given (then so is h_seq) or
+// both null, and then h_seq may be null too; h_last is always written. Returns a cudaError_t, or -1 for a (units,
+// lanes a row) pair the kernels are not compiled for: (4, 2), (4, 4),
+// (16, 16) (the variant zoo's U are 4, the iwganlstm critic, and 16, the
+// lstm classifier).
+extern "C" int mrgan_lstm_scan_fwd(const float* x, const float* wx, const float* b,
+                                   const float* xw, const float* wh, int n_seq,
+                                   int steps, int rows, int units, int lanes, int dirs,
+                                   int reverse, float* h_seq, float* h_last, float* zs,
+                                   float* c_seq, void* stream) {
+  const FwdArgs a{x, wx, b, xw, wh, steps, rows, dirs, reverse, h_seq, h_last, zs, c_seq};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (units) {
-    case 4: return launch_fwd<4>(xw, wh, n_seq, steps, rows, dirs, reverse, h_seq, h_last, zs, c_seq, st);
-    case 16: return launch_fwd<16>(xw, wh, n_seq, steps, rows, dirs, reverse, h_seq, h_last, zs, c_seq, st);
-    default: return -1;
-  }
+  return x ? dispatch_fwd<true>(a, n_seq, units, lanes, st)
+           : dispatch_fwd<false>(a, n_seq, units, lanes, st);
 }
 
 // The backward: dh_seq or dh_last may be null (no gradient there).
 extern "C" int mrgan_lstm_scan_bwd(const float* dh_seq, const float* dh_last,
-                                   const float* zs, const float* c_seq,
-                                   const float* wh, int n_seq, int steps,
-                                   int rows, int units, int dirs, int reverse,
-                                   float* dz, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (units) {
-    case 4: return launch_bwd<4>(dh_seq, dh_last, zs, c_seq, wh, n_seq, steps, rows, dirs, reverse, dz, st);
-    case 16: return launch_bwd<16>(dh_seq, dh_last, zs, c_seq, wh, n_seq, steps, rows, dirs, reverse, dz, st);
-    default: return -1;
-  }
+                                   const float* zs, const float* c_seq, const float* wh,
+                                   int n_seq, int steps, int rows, int units, int lanes,
+                                   int dirs, int reverse, float* dz, void* stream) {
+  const BwdArgs a{dh_seq, dh_last, zs, c_seq, wh, steps, rows, dirs, reverse, dz};
+  return dispatch_bwd(a, n_seq, units, lanes, static_cast<cudaStream_t>(stream));
 }

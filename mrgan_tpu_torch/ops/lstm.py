@@ -14,7 +14,8 @@ On a CPU tensor the recurrence is the plain loop ``lstm_scan_reference``
 under autograd (so a double backward, as the Petzka penalty needs, works).
 On a CUDA tensor it is ``LstmScan``, whose forward and backward are the two
 hand-written kernels of ``csrc/lstm_scan.cu`` (``ops/lstm_cuda.py``); the
-weight and input gradients are then plain products of the kernel's
+forward fuses the input projection where the input has one channel, and
+the input and weight gradients are plain products of the backward's
 per-step gate gradients.
 """
 
@@ -109,9 +110,11 @@ class LstmScan(torch.autograd.Function):
 
     Inputs: ``x`` (F, T, B, in) time-major, ``wx`` (F, dirs, in, 4U), ``wh``
     (F, dirs, U, 4U), ``b`` (F, dirs, 4U). Output: (F, dirs, T, B, U), or the
-    final states (F, dirs, B, U). The forward kernel saves each step's gates
-    and cell; the backward kernel walks them back into the gate gradients
-    dz (F, dirs, T, B, 4U), and dx, dwx, dwh and db are products of dz
+    final states (F, dirs, B, U). Where in = 1 the forward kernel takes x,
+    wx and b and projects each step itself; otherwise ``xw = x @ wx + b`` is
+    one ``torch.matmul``. The forward kernel saves each step's gates and
+    cell; the backward kernel walks them back into the gate gradients dz
+    (F, dirs, T, B, 4U), and dx, dwx, dwh and db are products of dz
     (``torch.einsum`` and ``torch.bmm``: fixed order, no atomics; the
     weight gradients summed over each step's rows, then over the steps).
     Not twice differentiable.
@@ -121,15 +124,22 @@ class LstmScan(torch.autograd.Function):
     def forward(ctx, x, wx, wh, b, dirs, reverse, return_sequences):
         from . import lstm_cuda
 
-        n_folds, steps, rows, _ = x.shape
+        n_folds, steps, rows, in_dim = x.shape
         units = wh.shape[-2]
         n_seq = n_folds * dirs
-        xw = torch.matmul(x.unsqueeze(1), wx.unsqueeze(2)) + b[:, :, None, None]
         save = any(ctx.needs_input_grad[:4])
+        if in_dim == 1:
+            inputs = dict(xw=None, x=x.view(n_folds, steps, rows),
+                          wx=wx.reshape(n_seq, 4 * units).contiguous(),
+                          b=b.reshape(n_seq, 4 * units).contiguous())
+        else:
+            xw = (torch.matmul(x.unsqueeze(1), wx.unsqueeze(2))
+                  + b[:, :, None, None])
+            inputs = dict(xw=xw.reshape(n_seq, steps, rows, 4 * units))
         h, h_last, zs, c = lstm_cuda.lstm_scan_fwd(
-            xw.reshape(n_seq, steps, rows, 4 * units),
-            wh.reshape(n_seq, units, 4 * units), dirs, reverse,
-            sequences=return_sequences or save, save=save)
+            wh=wh.reshape(n_seq, units, 4 * units), dirs=dirs,
+            reverse=reverse, sequences=return_sequences or save, save=save,
+            **inputs)
         ctx.dirs, ctx.reverse = dirs, reverse
         ctx.return_sequences = return_sequences
         if save:

@@ -11,7 +11,8 @@ of the raw second moment:
 ``init(t0)`` / ``update(stride)`` reproduce the reference's SHARED Adam
 instance: one optimizer serves the discriminator and the generator, so its
 counter advances by 2 per batch (disc ``t0=-1``, gen ``t0=0``, stride 2).
-Moments may be stored in bfloat16 with the moment math in float32.
+Moments may be stored in bfloat16 with the moment math in float32 (in
+float64 for float64 parameters, a rounding yardstick).
 
 The step counter lives on the host (a Python int), so lr_t is a host scalar
 and an update queues device work without waiting on the device. Each
@@ -53,21 +54,22 @@ def update(grads, state, params, lr=6e-4, b1=0.5, b2=0.999, eps=1e-8,
     t = state["t"] + stride
     lr_t = lr_at(t, lr, b1, b2)
     p = tree.leaves(params)
-    g = [x.float() for x in tree.leaves(grads)]
+    math = torch.float64 if p[0].dtype == torch.float64 else torch.float32
+    g = [x.to(math) for x in tree.leaves(grads)]
     m_old, v_old = tree.leaves(state["m"]), tree.leaves(state["v"])
     dtype = m_old[0].dtype
-    # b1 * m + (1 - b1) * g and b2 * v + (1 - b2) * g * g, in float32
-    m = torch._foreach_add(torch._foreach_mul([x.float() for x in m_old], b1),
+    # b1 * m + (1 - b1) * g and b2 * v + (1 - b2) * g * g, in ``math``
+    m = torch._foreach_add(torch._foreach_mul([x.to(math) for x in m_old], b1),
                            torch._foreach_mul(g, 1.0 - b1))
     v = torch._foreach_add(
-        torch._foreach_mul([x.float() for x in v_old], b2),
+        torch._foreach_mul([x.to(math) for x in v_old], b2),
         torch._foreach_mul(torch._foreach_mul(g, 1.0 - b2), g))
     m = [x.to(dtype) for x in m]
     v = [x.to(dtype) for x in v]
     # the parameter step reads the moments as stored
-    denom = torch._foreach_add(torch._foreach_sqrt([x.float() for x in v]),
+    denom = torch._foreach_add(torch._foreach_sqrt([x.to(math) for x in v]),
                                eps)
-    step = torch._foreach_div(torch._foreach_mul([x.float() for x in m], lr_t),
+    step = torch._foreach_div(torch._foreach_mul([x.to(math) for x in m], lr_t),
                               denom)
     new_params = torch._foreach_sub(p, step)
     return (tree.unflatten(params, new_params),

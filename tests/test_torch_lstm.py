@@ -177,3 +177,150 @@ def test_wrappers_check_their_inputs_and_never_fall_back():
     with pytest.raises(RuntimeError, match="nvcc"):
         lstm_cuda.lstm_scan_fwd(xw.to("meta"), wh.to("meta"), 2)
     assert lstm_cuda.fwd_launches == lstm_cuda.bwd_launches == 0
+
+
+def _fused_vs_jax(jax_fn, trees, xs, dirs, reverse, return_sequences, rng):
+    """The fused (in = 1) plain version of the forward kernel, called as the
+    wrapper takes it (x, wx, b), and the backward's on what it saved,
+    against jax.vjp of ``jax_fn``: the outputs, and dx, dwx, dwh and db as
+    ``LstmScan`` takes them from dz."""
+    n_folds = len(trees)
+    order = ("fwd", "bwd") if dirs == 2 else (None,)
+
+    def leaf(tree, d, k):
+        return tree[d][k] if d else tree[k]
+
+    stack = lambda k: torch.tensor(np.stack(  # noqa: E731
+        [leaf(t, d, k) for t in trees for d in order]))
+    wx, wh, b = stack("wx")[:, 0], stack("wh"), stack("b")
+    x = torch.tensor(xs[..., 0]).transpose(1, 2).contiguous()  # (F, T, B)
+    h, h_last, zs, c = lstm_cuda.lstm_scan_fwd(None, wh, dirs, reverse,
+                                               x=x, wx=wx, b=b)
+    n_seq = n_folds * dirs
+    want_shape = (n_folds, B, T, dirs * U) if return_sequences else (
+        n_folds, B, dirs * U)
+    w = rng.randn(*want_shape).astype(np.float32)
+    if return_sequences:
+        got = h.view(n_folds, dirs, T, B, U).permute(0, 3, 2, 1, 4)
+        dh = torch.tensor(w).view(n_folds, B, T, dirs, U).permute(
+            0, 3, 2, 1, 4).reshape(n_seq, T, B, U).contiguous()
+        args = (dh, None)
+    else:
+        got = h_last.view(n_folds, dirs, B, U).permute(0, 2, 1, 3)
+        dh = torch.tensor(w).view(n_folds, B, dirs, U).permute(
+            0, 2, 1, 3).reshape(n_seq, B, U).contiguous()
+        args = (None, dh)
+    dz = lstm_cuda.lstm_scan_bwd(*args, zs, c, wh, dirs, reverse)
+    dx = torch.einsum("fdtbg,fdg->fbt", dz.view(n_folds, dirs, T, B, 4 * U),
+                      wx.view(n_folds, dirs, 4 * U))
+    rev = lstm.reverse_mask(reverse, n_seq, dirs)
+    h_prev = lstm._previous(h, rev)
+    dwh = torch.einsum("stbu,stbg->sug", h_prev, dz)
+    dwx = torch.einsum("ftb,fdtbg->fdg", x,
+                       dz.view(n_folds, dirs, T, B, 4 * U)).reshape(n_seq, -1)
+    db = dz.sum(dim=(1, 2))
+
+    @jax.jit
+    def reference(tree, x, w):
+        want, vjp = jax.vjp(jax_fn, tree, x)
+        return (want, *vjp(w))
+
+    for f, tree in enumerate(trees):
+        want, jgp, jgx = reference(tree, xs[f], w[f])
+        np.testing.assert_allclose(
+            got[f].reshape(want.shape).numpy(), np.asarray(want), rtol=TOL,
+            atol=TOL)
+        np.testing.assert_allclose(dx[f].numpy(), np.asarray(jgx)[..., 0],
+                                   rtol=TOL, atol=TOL)
+        for i, d in enumerate(order):
+            s = f * dirs + i
+            for name, g in (("wx", dwx[s][None]), ("wh", dwh[s]),
+                            ("b", db[s])):
+                np.testing.assert_allclose(
+                    g.numpy(), np.asarray(leaf(jgp, d, name)), rtol=TOL,
+                    atol=TOL, err_msg="%s %s" % (d, name))
+
+
+@pytest.mark.parametrize("dirs,reverse", [(1, False), (1, True), (2, False)])
+@pytest.mark.parametrize("return_sequences", [True, False])
+def test_fused_plain_versions_match_jax(dirs, reverse, return_sequences):
+    """Where the input has one channel the forward kernel takes x, wx and
+    b: its plain version, and the backward's, against lstm_apply /
+    bilstm_apply and jax.grad."""
+    rng = np.random.RandomState(4)
+    xs = rng.randn(2, B, T, 1).astype(np.float32)
+    if dirs == 2:
+        trees, _ = _folds(jax_vnets.bilstm_init, 2, 1, U)
+        fn = lambda t, x: jax_vnets.bilstm_apply(t, x, return_sequences)  # noqa: E731
+    else:
+        trees, _ = _folds(jax_vnets.lstm_init, 2, 1, U)
+        fn = lambda t, x: jax_vnets.lstm_apply(t, x, reverse,  # noqa: E731
+                                               return_sequences)
+    _fused_vs_jax(fn, trees, xs, dirs, reverse, return_sequences, rng)
+
+
+def test_fused_projection_is_the_matmul_route():
+    """The fused forward's plain version projects x as torch.matmul and the
+    bias add round it: bit for bit the same recurrence."""
+    rng = np.random.RandomState(5)
+    n_folds, dirs, units = 2, 2, 4
+    x = torch.tensor(rng.randn(n_folds, T, B).astype(np.float32))
+    wx = torch.tensor(rng.randn(n_folds * dirs, 4 * units).astype(np.float32))
+    b = torch.tensor(rng.randn(n_folds * dirs, 4 * units).astype(np.float32))
+    wh = torch.tensor(rng.randn(n_folds * dirs, units, 4 * units)
+                      .astype(np.float32))
+    xw = (torch.matmul(x.unsqueeze(-1).unsqueeze(1),
+                       wx.view(n_folds, dirs, 1, 1, -1))
+          + b.view(n_folds, dirs, 1, 1, -1)).reshape(n_folds * dirs, T, B, -1)
+    fused = lstm_cuda.lstm_scan_fwd(None, wh, dirs, x=x, wx=wx, b=b)
+    for got, want in zip(fused, lstm_cuda.lstm_scan_fwd(xw, wh, dirs)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_wrappers_raise_on_inputs_they_do_not_take():
+    """Unit counts, lanes a row, shapes and types the kernels do not take
+    raise before any launch, on the CPU as on a device tensor; a device
+    tensor (meta here) never takes the plain version."""
+    x, wx, b = (torch.zeros((1, T, B)), torch.zeros((2, 16)),
+                torch.zeros((2, 16)))
+    wh, zs, c = (torch.zeros((2, 4, 16)), torch.zeros((2, T, B, 16)),
+                 torch.zeros((2, T, B, 4)))
+    meta = lambda *ts: [t.to("meta") for t in ts]  # noqa: E731
+    # a unit count and lanes a row the kernels are not compiled for
+    with pytest.raises(ValueError, match="U in"):
+        lstm_cuda.lstm_scan_fwd(*meta(torch.zeros((2, T, B, 12)),
+                                      torch.zeros((2, 3, 12))), 2)
+    with pytest.raises(ValueError, match="lanes"):
+        lstm_cuda.lstm_scan_fwd(None, *meta(wh), 2, x=meta(x)[0],
+                                wx=meta(wx)[0], b=meta(b)[0], lanes=8)
+    with pytest.raises(ValueError, match="lanes"):
+        lstm_cuda.lstm_scan_bwd(None, None, *meta(zs, c, wh), 2, lanes=3)
+    # shapes, types and mixed inputs
+    with pytest.raises(ValueError, match="not both"):
+        lstm_cuda.lstm_scan_fwd(torch.zeros((2, T, B, 16)), wh, 2, x=x,
+                                wx=wx, b=b)
+    with pytest.raises(ValueError):
+        lstm_cuda.lstm_scan_fwd(None, wh, 2, x=x, wx=torch.zeros((1, 16)),
+                                b=b)
+    with pytest.raises(ValueError):
+        lstm_cuda.lstm_scan_fwd(None, wh, 2, x=x.unsqueeze(-1), wx=wx, b=b)
+    with pytest.raises(TypeError):
+        lstm_cuda.lstm_scan_fwd(None, wh, 2, x=x.double(), wx=wx, b=b)
+    with pytest.raises(ValueError):
+        lstm_cuda.lstm_scan_bwd(None, torch.zeros((2, B, 3)), zs, c, wh, 2)
+    with pytest.raises(TypeError):
+        lstm_cuda.lstm_scan_bwd(None, None, zs, c.double(), wh, 2)
+    # device tensors go to the kernel, which this machine cannot build
+    before = (lstm_cuda.fwd_launches, lstm_cuda.bwd_launches)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        lstm_cuda.lstm_scan_fwd(None, *meta(wh), 2, x=meta(x)[0],
+                                wx=meta(wx)[0], b=meta(b)[0], lanes=4)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        lstm_cuda.lstm_scan_bwd(None, None, *meta(zs, c, wh), 2, lanes=2)
+    assert (lstm_cuda.fwd_launches, lstm_cuda.bwd_launches) == before
+
+
+def test_default_lanes_are_compiled_variants():
+    for units, lanes in lstm_cuda.LANES.items():
+        for n_seq, rows in ((2, 1), (2, 128), (12, 128), (12, 384)):
+            assert lstm_cuda.default_lanes(units, n_seq, rows) in lanes

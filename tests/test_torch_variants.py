@@ -578,3 +578,36 @@ def test_spectrometer_generate_load_preprocess_bit_for_bit(kind, tmp_path,
                 double_data=kind == "scio")
             for g, w in zip(got, want):
                 np.testing.assert_array_equal(g, w)
+
+
+# --------------------------------------------------------------------------
+# tools/paired_iwganlstm.py at a tiny width
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fault", [False, True])
+def test_paired_iwganlstm_tool(fault, monkeypatch):
+    """The paired check's three runs (the JAX package's _train_one, the
+    port's train_step in float32 and float64) over two updates of a tiny
+    iwganlstm fold: they agree under the tool's rule, and a port whose
+    unlabeled loss is off by 0.1 % is called a fault."""
+    from tools import paired_iwganlstm as paired
+
+    jcfg = dataclasses.replace(paired.jax_config(), **SMALL)
+    rng = np.random.RandomState(13)
+    feat, n_lab, n_train, n_test = 6, 10, 16, 6
+    centers = 2.0 * rng.randn(6, feat)
+    ys = [np.arange(n) % 6 for n in (n_lab, n_train, n_test)]
+    xs = [(centers[y] + rng.randn(len(y), feat)).astype(np.float32)
+          for y in ys]
+    fold = {"x_labeled": xs[0], "y_labeled": ys[0], "pool": xs[1],
+            "x_test": xs[2], "y_test": ys[2], "n_train": n_train}
+    if fault:
+        unl = losses.loss_unlabeled_wgan
+        monkeypatch.setattr(losses, "loss_unlabeled_wgan",
+                            lambda *a, **k: 1.001 * unl(*a, **k))
+    rows, mismatch = paired.paired(jax.random.PRNGKey(14), fold, jcfg,
+                                   log=lambda s: None)
+    assert sum("[" in r[0] for r in rows) == 4   # 2 losses x 2 updates
+    assert paired.verdict(rows) == ("FAULT" if fault else "agree")
+    if not fault:
+        assert mismatch == 0
