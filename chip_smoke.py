@@ -89,11 +89,40 @@ Phases (any failure raises and the script exits non-zero):
     CLI's lines, and recurrence-kernel
     launches on exactly the three LSTM algorithms.
 
+19. The autoencoder GAN at full width: ``run_ae_gan_cell`` on the raw
+    modality-3 set (7,200 x 9,600 contact samples), 100 % labels, 6 folds,
+    seed 0, at the depths of ``artifacts/ae_gan_ref.jsonl`` (AE 10 of 100
+    epochs, GAN 100), held to the record's seeds as one more draw of them
+    and below chance on every fold (the two-seed verdict and the 0.1-below-
+    chance verdict printed: the record itself misses the latter); the AE
+    step's and the GAN-on-encodings step's CUDA-event median, busy share and
+    top operations, peak memory, updates/s, the 100-epoch AE cell's
+    predicted time; ``cli.autoencoder.main`` at SMOKE_POKES pokes, 1 epoch.
+20. The activation maps at full width: ``cli.activation_map`` on modality 2
+    (fold 0 of seed 0, the MLP at 10 epochs, 8 samples); its ``.npy`` maps
+    against the port's CPU maps from the same parameters (1e-4); the
+    planted-feature check of ``tests/test_variants.py`` on the card.
+21. The function API: ``protocol.mr_gan`` on the modality-5 set, built
+    again through the mel kernel (72 launches), 10 epochs, seed 0: 200 test
+    rows a class, the error below chance less 0.1; then the
+    ``trainTestSets`` route.
+22. ``wgan_grid -t 0 -a svm``, ``-t 0 -a rf`` and ``-t 1 2 -a svm`` on the
+    default (native) routes at SMOKE_POKES pokes: the lines of
+    ``artifacts/grid_svm_rf_ref.jsonl`` (the JAX CLI with scikit-learn), the
+    SVM within 0.03 a fold (one row on a 10-row leave-one-object-out fold),
+    the forest's mean within 0.05 and every fold above chance + 0.1; the
+    Gram, SMO and forest-fit times.
+23. Preprocessing: ``generate_raw_file`` pickles (6 materials x 2 objects x
+    4 pokes) through ``cli.preprocess.main`` on the card, configs 0 and 7,
+    every array within 1e-5 of its range of a ``device="cpu"`` run, the
+    output read back by ``mreo.load_features``.
+
 The kernel counts are set to 0 just before each path is driven (phase 4,
-then phases 6-7, phase 9's request, each path of phases 12-15, 17 and 18)
-and read just after; the JSON line's ``launches`` is their sum. Launches
-made to compare a kernel with its plain version or to time it are not
-counted.
+then phases 6-7, phase 9's request, each path of phases 12-15, 17-18 and
+19-23) and read just after; the JSON line's ``launches`` is their sum.
+Phases 19, 20, 22 and 23 launch neither kernel, and check that they do
+not. Launches made to compare a kernel with its plain version or to time
+it are not counted.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA
@@ -104,6 +133,8 @@ import contextlib
 import io
 import json
 import math
+import pickle
+import re
 import statistics
 import subprocess
 import sys
@@ -115,17 +146,21 @@ import numpy as np
 import torch
 
 from mrgan_tpu_torch import MATERIALS
+from mrgan_tpu_torch.cli import activation_map as am_cli
+from mrgan_tpu_torch.cli import autoencoder as ae_cli
+from mrgan_tpu_torch.cli import preprocess as prep_cli
 from mrgan_tpu_torch.cli import tables, wgan_grid
-from mrgan_tpu_torch.data import mreo
+from mrgan_tpu_torch.data import mreo, preprocess, py2pickle, synthetic
 from mrgan_tpu_torch.models import nets
 from mrgan_tpu_torch.models import variant_nets as vnets
 from mrgan_tpu_torch.ops import features, lstm, lstm_cuda, mel, mel_cuda
 from mrgan_tpu_torch.serve import MaterialClassifier, fit_classifier
-from mrgan_tpu_torch.train import gan, mlp, protocol, svm
+from mrgan_tpu_torch.train import gan, mlp, optim, protocol, svm
 from mrgan_tpu_torch.utils import device as numeric
 from mrgan_tpu_torch.utils import rng as rng_util
 from mrgan_tpu_torch.utils import tree
-from mrgan_tpu_torch.variants import wgan
+from mrgan_tpu_torch.variants import (activation_maps, autoencoder,
+                                      baselines, wgan)
 
 ROOT = Path(__file__).resolve().parent
 FIXDIR = ROOT / "tests" / "golden" / "fixtures"
@@ -1373,6 +1408,20 @@ def seed_distribution(name, errs, ref):
     assert lo <= errs.min() and errs.max() <= hi, (name, errs, lo, hi)
 
 
+def two_seed_verdict(name, errs, want, fold_bar, mean_bar):
+    """Print the cell against the seed-0 record at the two-seed bars, the
+    verdict reported, not held."""
+    delta = errs - want
+    inside = (np.abs(delta).max() <= fold_bar
+              and abs(delta.mean()) <= mean_bar)
+    print("%s: port %s, JAX package %s; worst |delta| %.4f (bar %.4f), "
+          "|mean delta| %.2f points (bar %.2f): %s the two-seed bars "
+          "(reported, not held)" % (
+              name, np.round(errs, 4).tolist(), np.round(want, 4).tolist(),
+              np.abs(delta).max(), fold_bar, 100 * abs(delta.mean()),
+              100 * mean_bar, "inside" if inside else "OUTSIDE"))
+
+
 def variant_cell(x2, y2, algorithm):
     """Phase 17: the full-width cell (6 folds stacked) at the recorded
     depth, against the JAX package's seed-0 record at the DP-parity bars,
@@ -1404,16 +1453,7 @@ def variant_cell(x2, y2, algorithm):
     if algorithm in TWO_SEED_HELD:
         hold_to_reference(name, errs, ref[0], fold_bar, mean_bar)
     else:
-        delta = errs - ref[0]
-        inside = (np.abs(delta).max() <= fold_bar
-                  and abs(delta.mean()) <= mean_bar)
-        print("%s: port %s, JAX package %s; worst |delta| %.4f (bar %.4f), "
-              "|mean delta| %.2f points (bar %.2f): %s the two-seed bars "
-              "(reported, not held)" % (
-                  name, np.round(errs, 4).tolist(),
-                  np.round(ref[0], 4).tolist(), np.abs(delta).max(),
-                  fold_bar, 100 * abs(delta.mean()), 100 * mean_bar,
-                  "inside" if inside else "OUTSIDE"))
+        two_seed_verdict(name, errs, ref[0], fold_bar, mean_bar)
         seed_distribution("phase 17 " + algorithm, errs, ref)
     below_chance("phase 17 " + algorithm, errs)
     print("phase 17: %s: %d updates (6 folds x %d epochs x %d batches) in "
@@ -1551,6 +1591,440 @@ def grid_cli(device="cuda"):
     print("phase 18: wgan_grid %s: %d grid points x 6 folds; %s; wall %.3f s"
           % (" ".join(argv), points, lines[-3], wall))
     return tuple(total)
+
+
+
+# -- this slice: the reference's remaining research paths --------------------
+
+AE_REFERENCE = ROOT / "artifacts" / "ae_gan_ref.jsonl"
+GRID_REFERENCE = ROOT / "artifacts" / "grid_svm_rf_ref.jsonl"
+AE_EPOCHS, AE_GAN_EPOCHS = 10, 100   # the record's depths (AE 10 of 100)
+LEARNED_BAR = CHANCE_ERROR - LEARNED_MARGIN
+MAPS_ATOL = 1e-4                     # the card's maps vs the CPU's
+PREP_RTOL = 1e-5                     # of each array's range, as in
+                                     # tests/test_torch_resample.py:55
+RF_MEAN_DELTA = 0.05
+
+
+def slice_driven(fn):
+    """fn() with both kernels' counts set to 0 just before and read just
+    after: (result, DFT kernel launches, (LSTM forward, backward))."""
+    (result, (fwd, bwd)), dft, _ = driven(lambda: lstm_driven(fn))
+    return result, dft, (fwd, bwd)
+
+
+def ae_reference():
+    """The JAX package's recorded AE-GAN cells (tools/record_ae_gan_ref.py):
+    {seed: fold errors}, at the depths this phase runs."""
+    recs = [json.loads(l) for l in AE_REFERENCE.read_text().splitlines()
+            if l.strip()]
+    recs = [r for r in recs if r["cell"]["ae_epochs"] == AE_EPOCHS
+            and r["cell"]["gan_epochs"] == AE_GAN_EPOCHS]
+    assert {r["seed"] for r in recs} >= {0, 1, 2, 3}, recs
+    return {r["seed"]: np.asarray(r["result"]) for r in recs}
+
+
+def ae_gan_phase(dev, pokes=100):
+    """Phase 19: the AE-GAN cell at full width (raw modality 3, 7,200 x
+    9,600, 6 folds stacked, 100 % labels, seed 0, AE 10 of 100 epochs, GAN
+    100 epochs) held to the JAX package's recorded seeds as one more draw
+    of them (:func:`seed_distribution`), every fold below chance; against
+    the seed-0 record at the DP-parity bars, or the seed-0 / seed-1 spread
+    where that is wider, the verdict is printed (the two recorded seeds
+    differ by that bar on a fold: a third draw fails it about half the
+    time). Then the AE step and the GAN-on-encodings step timed and
+    profiled, and the CLI at SMOKE_POKES pokes an object. Returns the
+    cell's (errors, wall seconds)."""
+    x3, y3 = ae_cli.raw_contact_dataset(0, pokes)
+    assert x3.shape == (72 * pokes, AUDIO_LEN), x3.shape
+    ref = ae_reference()
+    fold_spread, mean_spread = seed_spread(ref)
+    ae_cfg = autoencoder.AeConfig(epochs=AE_EPOCHS)
+    gan_cfg = gan.GanConfig(epochs=AE_GAN_EPOCHS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    errs, dft, lstm_n = slice_driven(lambda: autoencoder.run_ae_gan_cell(
+        x3, y3, 100, ae_cfg=ae_cfg, gan_cfg=gan_cfg, seed=0, device=dev))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    assert dft == 0 and lstm_n == (0, 0), (dft, lstm_n)
+    two_seed_verdict(
+        "phase 19: AE-GAN raw modality 3 (%d x %d), 100 %% labels, AE %d "
+        "epochs, GAN %d epochs, seed 0 vs %s seed 0 (its seed-0 / seed-1 "
+        "spread: worst fold %.4f, mean %.2f points)" % (
+            len(y3), AUDIO_LEN, AE_EPOCHS, AE_GAN_EPOCHS,
+            AE_REFERENCE.relative_to(ROOT), fold_spread, 100 * mean_spread),
+        errs, ref[0], max(FOLD_DELTA, fold_spread),
+        max(MEAN_DELTA, mean_spread))
+    seed_distribution("phase 19 AE-GAN", errs, ref)
+    # the record itself sits above the 0.733 bar (0.1 below chance), so a
+    # faithful port cannot meet it: it is printed, and the cell is held
+    # below chance, where every recorded fold is
+    record_max = max(e.max() for e in ref.values())
+    print("phase 19: every fold below chance (%.4f): port max %.4f, record "
+          "max %.4f; the 0.1-below-chance bar (%.4f) is %s by the port and "
+          "%s by the record (reported, not held)" % (
+              CHANCE_ERROR, errs.max(), record_max, LEARNED_BAR,
+              "met" if errs.max() < LEARNED_BAR else "missed",
+              "met" if record_max < LEARNED_BAR else "missed"))
+    assert errs.max() < CHANCE_ERROR and record_max < CHANCE_ERROR, errs
+    n_train = len(y3) - len(y3) // 6
+    bs, nb = autoencoder.ae_batches(n_train, ae_cfg)
+    ae_updates = 6 * AE_EPOCHS * nb
+    gan_updates = 6 * AE_GAN_EPOCHS * (n_train // gan_cfg.batch_size)
+    print("phase 19: cell wall %.3f s for %d AE updates (6 folds x %d epochs "
+          "x %d batches of %d) and %d GAN updates (6 folds x %d epochs x %d "
+          "batches): %.1f updates/s; peak device memory %.3f GB" % (
+              wall, ae_updates, AE_EPOCHS, nb, bs, gan_updates,
+              AE_GAN_EPOCHS, n_train // gan_cfg.batch_size,
+              (ae_updates + gan_updates) / wall, peak / 1e9))
+
+    # the AE step at full width: 6 folds of seeded rows
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pool = torch.randn((6, n_train, AUDIO_LEN), generator=gen, device=dev)
+    state = autoencoder.ae_init_state(gen, AUDIO_LEN, ae_cfg, 6)
+    perm = autoencoder.ae_draw_epoch(gen, 6, n_train, ae_cfg)
+    rows = torch.arange(6, device=dev)[:, None]
+
+    def ae_step(b):
+        nonlocal state
+        xb = pool[rows, perm[:, b % nb]]
+        state, _ = autoencoder.ae_train_step(state, xb, ae_cfg)
+
+    ae_ms, ae_busy, ae_per_step, ae_ops = time_steps(ae_step)
+    n_params = sum(p.numel() for p in tree.leaves(state["params"]))
+    print("phase 19: AE step (6 folds, batch %d, D=%d, %d parameters a "
+          "fold): median %.4f ms of 60 (CUDA events); device time %s per "
+          "step (torch.profiler): device busy %.1f%% of the step; %.1f "
+          "device operations per step" % (
+              bs, AUDIO_LEN, n_params // 6, ae_ms, fmt_ms(ae_busy),
+              100 * ae_busy / ae_ms, ae_per_step))
+    print_top_ops("phase 19 AE", ae_ops, 8)
+    del pool, state
+
+    # the GAN on the encodings: 6 folds of 256-wide seeded rows
+    width = ae_cfg.nodes[-1]
+    data = {"x_labeled": torch.randn((6, n_train, width), generator=gen,
+                                     device=dev),
+            "y_labeled": torch.randint(0, 6, (6, n_train), generator=gen,
+                                       device=dev),
+            "pool": torch.randn((6, n_train, width), generator=gen,
+                                device=dev)}
+    gstate = gan.init_state(gan.init_params(gen, width, gan_cfg, 6), gan_cfg)
+    li, ui, u2i = gan.epoch_schedule(gen, 6, n_train, n_train, n_train,
+                                     gan_cfg.batch_size)
+    gnb = li.shape[1]
+
+    def gan_step(b):
+        nonlocal gstate
+        rand = gan.draw_step(gen, 6, gan_cfg.batch_size, width, gan_cfg)
+        gstate, _ = gan.train_step(gstate, data, li[:, b % gnb],
+                                   ui[:, b % gnb], u2i[:, b % gnb], rand,
+                                   cfg=gan_cfg)
+
+    gan_ms, gan_busy, gan_per_step, gan_ops = time_steps(gan_step)
+    print("phase 19: GAN-on-encodings step (6 folds, batch %d, D=%d): "
+          "median %.4f ms of 60 (CUDA events); device time %s per step "
+          "(torch.profiler): device busy %.1f%% of the step; %.1f device "
+          "operations per step" % (
+              gan_cfg.batch_size, width, gan_ms, fmt_ms(gan_busy),
+              100 * gan_busy / gan_ms, gan_per_step))
+    print_top_ops("phase 19 GAN", gan_ops, 8)
+    full_ae = 100 * nb * ae_ms / 1e3
+    print("phase 19: the reference's 100-epoch AE cell predicted at %.1f s "
+          "(%d AE steps at the median, %.1f s; the GAN's %d steps at the "
+          "median, %.1f s); not run (no record at that depth)" % (
+              full_ae + gan_updates / 6 * gan_ms / 1e3, 100 * nb, full_ae,
+              gan_updates // 6, gan_updates / 6 * gan_ms / 1e3))
+
+    argv = ["-t", "1", "--synthetic", "--synthetic-pokes", str(SMOKE_POKES),
+            "--epochs", "1", "--percents", "4", "100", "--seed", "0"]
+    (lines, cli_wall), dft, lstm_n = slice_driven(
+        lambda: run_cli(ae_cli.main, argv))
+    assert dft == 0 and lstm_n == (0, 0), (dft, lstm_n)
+    assert lines[1] == "-" * 25 + " Testing various amounts of labeled " \
+        "training data " + "-" * 25, lines[:3]
+    assert count(lines, "Contact mic modality") == 1
+    assert count(lines, "Percentage of training data labeled:") == 2
+    accs = [float(l.split()[-1]) for l in lines
+            if l.startswith("Test accuracy:")]
+    assert len(accs) == 12 and all(0 <= a <= 1 for a in accs), lines
+    assert count(lines, "Average accuracy:", True) == 2
+    print("phase 19: autoencoder main %s: %d lines, 2 x 6 folds, averages "
+          "%s; wall %.3f s" % (" ".join(argv), len(lines),
+                               [l.split()[-1] for l in lines
+                                if l.startswith("Average")], cli_wall))
+    return errs, wall
+
+
+def planted_features(dev, seed=0):
+    """tests/test_variants.py:116-155 on the card: a sigmoid MLP trained on
+    class-dependent values planted at features y+2..y+4; the maps of 50
+    rows put more weight on the planted features. Returns the two means."""
+    rng = np.random.RandomState(seed)
+    n, k, d = 3000, 5, 10
+    y = rng.randint(0, k, n)
+    x = rng.rand(n, d).astype(np.float32)
+    for i, yy in enumerate(y):
+        x[i, yy + 2 : yy + 5] = (0.1, 0.2, 0.3)
+    y1h = np.eye(k, dtype=np.float32)[y]
+    widths = (64, 64)
+    params = nets.mlp_init(rng_util.make_generator(seed, dev), d, k, 1,
+                           widths, device=dev)
+    opt = optim.init(params)
+    xt, yt = (torch.from_numpy(a).to(dev)[None] for a in (x, y1h))
+    for _ in range(30):
+        perm = rng.permutation(n)
+        for s in range(0, n, 128):
+            sl = torch.from_numpy(perm[s : s + 128]).to(dev)
+            p = tree.tree_map(lambda a: a.detach().requires_grad_(), params)
+            loss = torch.square(torch.sigmoid(nets.mlp_apply(
+                p, xt[:, sl], widths=widths)) - yt[:, sl]).mean()
+            grads = torch.autograd.grad(loss, tree.leaves(p))
+            params, opt = optim.update(tree.unflatten(p, grads), opt, params,
+                                       lr=1e-3, b1=0.9)
+
+    def fwd(p, xi):
+        return torch.sigmoid(nets.mlp_apply(p, xi[None, None],
+                                            widths=widths)[0, 0])
+
+    cams = activation_maps.saliency(fwd, params, xt[0, :50],
+                                    yt[0, :50]).cpu().numpy()
+    mask = np.zeros((50, d), bool)
+    for i in range(50):
+        mask[i, y[i] + 2 : y[i] + 5] = True
+    return cams[mask].mean(), cams[~mask].mean()
+
+
+def activation_phase(dev, pokes=100, epochs=10):
+    """Phase 20: the activation-map CLI at full width (modality 2, 7,200 x
+    1,200 -> 1,280, fold 0 of seed 0, the MLP at 10 epochs, 8 samples): the
+    .npy maps against the port's CPU maps from the same parameters; the
+    planted-feature check on the card."""
+    out_dir = OUT_DIR / "activation_maps"
+    argv = ["-m", "2", "--synthetic", "--synthetic-pokes", str(pokes),
+            "--epochs", str(epochs), "--samples", "8", "--seed", "0",
+            "--out-dir", str(out_dir)]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res, dft, lstm_n = slice_driven(lambda: am_cli.make_maps(argv))
+    wall = time.perf_counter() - t0
+    assert dft == 0 and lstm_n == (0, 0), (dft, lstm_n)
+    maps = np.load(out_dir / "activation_maps.npy")
+    inputs = np.load(out_dir / "activation_inputs.npy")
+    assert maps.shape == inputs.shape == (8, 3 * FT_LEN), maps.shape
+    assert res["x"].shape == (8, VARIANT_T), res["x"].shape
+    params = tree.tree_map(lambda a: a.cpu(), res["params"])
+    cpu = activation_maps.mlp_saliency(params, res["x"].cpu(),
+                                       res["y_target"].cpu())
+    cpu = cpu[:, : res["valid_dim"]].numpy()
+    err = float(np.abs(maps - cpu).max())
+    assert err <= MAPS_ATOL, err
+    assert np.isfinite(maps).all() and maps.min() >= 0 and maps.max() <= 1
+    planted, other = planted_features(dev)
+    assert planted > other, (planted, other)
+    print("phase 20: activation_map main %s: test error %.4f, maps %s (the "
+          "PNG %s); card vs CPU maps from the same parameters max_abs_err "
+          "%r (bar %g); planted features: mean map %.4f vs %.4f elsewhere; "
+          "wall %.3f s" % (
+              " ".join(argv), res["error"], maps.shape,
+              "written" if len(res["paths"]) == 3 else "skipped: no "
+              "matplotlib", err, MAPS_ATOL, planted, other, wall))
+
+
+def function_api_phase(dev, pokes=100, epochs=10):
+    """Phase 21: ``protocol.mr_gan`` on phase 6's modality-5 set, built
+    again through the mel kernel: the internal split's test rows (200 a
+    class), the error below chance less 0.1, then the trainTestSets route.
+    Returns the path's DFT kernel launches."""
+    (x, y), dft, lstm_n = slice_driven(lambda: mreo.load_features(
+        modalities=5, synthetic_seed=0,
+        synthetic_kwargs={"pokes_per_object": pokes}, device=dev))
+    assert dft == (72 if dev.type == "cuda" else 0) and lstm_n == (0, 0), (
+        dft, lstm_n)
+    x, y = x.cpu().numpy(), y.cpu().numpy()
+    seen, orig = [], protocol.run_gan_cell
+
+    def record(*a, splits=None, **k):
+        seen.append(splits)
+        return orig(*a, splits=splits, **k)
+
+    protocol.run_gan_cell = record
+    try:
+        t0 = time.perf_counter()
+        err = protocol.mr_gan(x, y, epochs=epochs, seed=0, device=dev)
+        wall = time.perf_counter() - t0
+        (tr, te), = seen[0]
+        tr_sets = (x[tr], x[te], y[tr], y[te])
+        t0 = time.perf_counter()
+        err_sets = protocol.mr_gan(x, y, trainTestSets=tr_sets,
+                                   epochs=epochs, seed=0, device=dev)
+        wall_sets = time.perf_counter() - t0
+    finally:
+        protocol.run_gan_cell = orig
+    assert np.bincount(y[te], minlength=6).tolist() == [200] * 6
+    assert len(tr) == len(y) - 1200 and not np.isin(te, tr).any()
+    assert err < LEARNED_BAR and err_sets < LEARNED_BAR, (
+        err, err_sets)
+    print("phase 21: mr_gan modality 5 (%d x %d), 50 %% labels, %d epochs, "
+          "seed 0: test rows a class %s, error %.4f (bar %.4f), wall %.3f s; "
+          "trainTestSets route: error %.4f, wall %.3f s; %d kernel launches "
+          "in the loader" % (*x.shape, epochs, np.bincount(y[te]).tolist(),
+                             err,
+                             LEARNED_BAR, wall, err_sets, wall_sets,
+                             dft))
+    return dft
+
+
+def grid_reference():
+    """tools/record_grid_svm_rf_ref.py's lines: {argv tuple: record}."""
+    return {tuple(r["argv"]): r for r in
+            (json.loads(l) for l in GRID_REFERENCE.read_text().splitlines()
+             if l.strip())}
+
+
+@contextlib.contextmanager
+def baseline_timings():
+    """Sum the Gram, SMO and forest-fit seconds of every fold the grid CLI
+    runs (baselines.learn_svm / learn_rf, wrapped)."""
+    total = {"gram_s": 0.0, "solve_s": 0.0, "fit_s": 0.0, "svm": 0, "rf": 0}
+    learn_svm, learn_rf = baselines.learn_svm, baselines.learn_rf
+
+    def add(name, timings):
+        total[name] += 1
+        for k, v in timings.items():
+            total[k] += v
+
+    def svm_(*a, **k):
+        timings = {}
+        acc = learn_svm(*a, timings=timings, **k)
+        add("svm", timings)
+        return acc
+
+    def rf_(*a, **k):
+        timings = {}
+        acc = learn_rf(*a, timings=timings, **k)
+        add("rf", timings)
+        return acc
+
+    baselines.learn_svm, baselines.learn_rf = svm_, rf_
+    try:
+        yield total
+    finally:
+        baselines.learn_svm, baselines.learn_rf = learn_svm, learn_rf
+
+
+def grid_svm_rf_phase(dev):
+    """Phase 22: wgan_grid -a svm / -a rf on the card's default (native)
+    routes at SMOKE_POKES pokes an object, held to the JAX CLI's record
+    (scikit-learn on the CPU): the same lines; the SVM within 0.03 a fold
+    (a leave-one-object-out fold holds 10 rows: there, within one row); the
+    forest's mean within 0.05 and every fold above chance + 0.1."""
+    ref = grid_reference()
+    for args in (["-t", "0", "-a", "svm"], ["-t", "0", "-a", "rf"],
+                 ["-t", "1", "2", "-a", "svm", "--percents", "0.5"]):
+        argv = args + ["--synthetic", "--synthetic-pokes", str(SMOKE_POKES)]
+        want = ref[tuple(argv)]
+        with baseline_timings() as spent:
+            (lines, wall), dft, lstm_n = slice_driven(
+                lambda: run_cli(wgan_grid.main, argv))
+        assert dft == 0 and lstm_n == (0, 0), (dft, lstm_n)
+        assert lines[-1].startswith("Total time:"), lines[-1]
+        number = re.compile(r"(?<![\w.])-?\d+(\.\d+)?(e[-+]?\d+)?(?![\w.])")
+        assert [number.sub("#", l) for l in lines[:-1]] == [
+            number.sub("#", l) for l in want["lines"]], (lines, want)
+        accs = np.asarray([float(l.split("Test accuracy:")[1]) for l in lines
+                           if "Test accuracy:" in l])
+        refs = np.asarray(want["accuracies"])
+        delta = np.abs(accs - refs)
+        if "rf" in args:
+            chance = 1.0 / 6 + LEARNED_MARGIN
+            assert abs(accs.mean() - refs.mean()) <= RF_MEAN_DELTA
+            assert accs.min() > chance, accs
+            verdict = ("mean %.4f vs %.4f (bar %.2f), worst fold %.4f (bar "
+                       "> %.4f), folds equal to the record: %s" % (
+                           accs.mean(), refs.mean(), RF_MEAN_DELTA,
+                           accs.min(), chance, bool((delta == 0).all())))
+            times = "forest fits on the host %.3f s (%d folds)" % (
+                spent["fit_s"], spent["rf"])
+        else:
+            loo = np.asarray(["_obj" in l for l in lines
+                              if "Test accuracy:" in l])
+            bar = np.where(loo, 0.1 + 1e-9, SVM_FOLD_DELTA)
+            assert (delta <= bar).all(), (delta, bar)
+            verdict = ("worst |delta| %.4f over %d folds (bar %.2f; %d "
+                       "leave-one-object-out folds of 10 rows, bar one row: "
+                       "%d differ by one)" % (
+                           delta.max(), len(delta), SVM_FOLD_DELTA,
+                           loo.sum(), int(((delta > 0) & loo).sum())))
+            times = ("linear Grams on the card %.3f s, SMO on the host %.3f "
+                     "s (%d folds, host copies included)" % (
+                         spent["gram_s"], spent["solve_s"], spent["svm"]))
+        print("phase 22: wgan_grid %s: %d lines as the JAX CLI's; %s; %s; "
+              "wall %.3f s" % (" ".join(argv), len(lines), verdict, times,
+                               wall))
+    n_lab = 355   # a leave-one-object-out fold's labeled rows: 710 / 2
+    a = torch.randn((n_lab, 3 * FT_LEN), device=dev)
+    gram_ms = cuda_ms(lambda: svm.linear_kernel(a, a))
+    print("phase 22: one linear Gram of %d labeled rows x %d features: "
+          "%.4f ms on the card (CUDA events)" % (n_lab, 3 * FT_LEN, gram_ms))
+
+
+def preprocess_phase(dev):
+    """Phase 23: generate_raw_file pickles (6 materials x 2 objects x 4
+    pokes, python-2 shaped) through ``cli.preprocess.main`` on the card
+    (configs 0 and 7), every array held to a device="cpu" run within 1e-5
+    of its range, the output read back through ``mreo.load_features``."""
+    raw = OUT_DIR / "data_raw"
+    raw.mkdir(parents=True, exist_ok=True)
+    for m, material in enumerate(MATERIALS):
+        for o in range(2):
+            py2pickle.dump_py2(
+                synthetic.generate_raw_file(seed=10 * m + o,
+                                            material=material, pokes=4),
+                str(raw / ("newdata_%s_obj%d_4seqs.pkl" % (material, o))))
+    out_card, out_cpu = OUT_DIR / "processed_cuda", OUT_DIR / "processed_cpu"
+    argv = ["--raw-dir", str(raw), "--out-dir", str(out_card), "--configs",
+            "0", "7", "--prefix", ""]
+    (lines, wall), dft, lstm_n = slice_driven(
+        lambda: run_cli(prep_cli.main, argv))
+    assert dft == 0 and lstm_n == (0, 0), (dft, lstm_n)
+    assert count(lines, "Processing:", True) == 2 * 12, lines[:4]
+    configs = [preprocess.CONFIGS[0], preprocess.CONFIGS[7]]
+    t0 = time.perf_counter()
+    preprocess.run(str(raw), str(out_cpu), configs=configs, prefix="",
+                   verbose=False, device="cpu")
+    wall_cpu = time.perf_counter() - t0
+    worst, n_arrays = 0.0, 0
+    for ft, c in configs:
+        for material in MATERIALS:
+            name = Path(mreo.processed_path("", material, ft, c)).name
+            got = pickle.loads((out_card / name).read_bytes())
+            want = pickle.loads((out_cpu / name).read_bytes())
+            assert sorted(got) == sorted(want) and len(got) == 2, got.keys()
+            for obj in want:
+                for k in want[obj]:
+                    g, w = np.asarray(got[obj][k]), np.asarray(want[obj][k])
+                    assert g.shape == w.shape and g.dtype == np.float64
+                    scale = max(float(np.ptp(w)), 1.0)
+                    err = float(np.abs(g - w).max()) / scale
+                    assert err <= PREP_RTOL, (name, obj, k, err)
+                    worst, n_arrays = max(worst, err), n_arrays + 1
+    shapes = []
+    for ft, c in configs:
+        x, y = mreo.load_features(modalities=2, forcetemp_time=ft,
+                                  contactmic_time=c, data_dir=str(out_card),
+                                  device=dev)
+        assert x.shape == (48, 3 * int(100 * ft)) and torch.isfinite(x).all()
+        assert torch.bincount(y).tolist() == [8] * 6
+        shapes.append(tuple(x.shape))
+    print("phase 23: preprocess main %s: 2 configs x 6 materials x 2 files "
+          "of 4 pokes; %d arrays, card vs CPU worst |delta| / range %.3g "
+          "(bar %g); load_features modality 2 shapes %s; wall %.3f s on the "
+          "card, %.3f s on the CPU" % (" ".join(argv), n_arrays, worst,
+                                       PREP_RTOL, shapes, wall, wall_cpu))
 
 
 def main():
@@ -1762,15 +2236,29 @@ def main():
     variant_launches = [a + b for a, b in zip(variant_launches,
                                               grid_launches)]
     t_phase["18"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
+
+    # -- this slice: the reference's remaining research paths ----------------
+    ae_gan_phase(dev)
+    t_phase["19"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
+    activation_phase(dev)
+    t_phase["20"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
+    api_launches = function_api_phase(dev)
+    t_phase["21"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
+    grid_svm_rf_phase(dev)
+    t_phase["22"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
+    preprocess_phase(dev)
+    t_phase["23"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
     print("phase wall times: %s s; the script so far %.1f s" % (
         ", ".join("%s %.1f" % kv for kv in t_phase.items()),
         time.perf_counter() - script_t0))
-    total = launches + train_launches + fit_launches + table_launches
+    total = (launches + train_launches + fit_launches + table_launches
+             + api_launches)
     print("kernel launches on the driven paths: mel_power: serving %d, "
-          "training (phases 6-7) %d, phase 9 %d, phases 12-15 %d: %d; "
-          "lstm_scan_fwd / lstm_scan_bwd (phases 17-18): %d / %d" % (
-              launches, train_launches, fit_launches, table_launches, total,
-              *variant_launches))
+          "training (phases 6-7) %d, phase 9 %d, phases 12-15 %d, phase 21 "
+          "%d: %d; lstm_scan_fwd / lstm_scan_bwd (phases 17-18): %d / %d; "
+          "phases 19, 20, 22 and 23 launch neither kernel" % (
+              launches, train_launches, fit_launches, table_launches,
+              api_launches, total, *variant_launches))
 
     print(gpu_line())
     lstm_source = "mrgan_tpu_torch/csrc/lstm_scan.cu"

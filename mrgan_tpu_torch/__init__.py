@@ -13,7 +13,11 @@ checkpoints (``utils.params_io``) and ``serve.MaterialClassifier``; and the
 paper's tables: the semi-supervised GAN (``train.gan``, ``train.protocol``),
 the MLP and SVM baselines (``train.mlp``, ``train.svm`` with the in-tree SMO
 of ``csrc/svm_smo.cpp``), the loader (``data.mreo``) and the table CLIs
-(``cli.tables``).
+(``cli.tables``); the variant zoo (``variants``, ``cli.wgan_grid``, the
+biLSTM recurrence kernels of ``csrc/lstm_scan.cu``) with its random forest
+(``train.forest``); the autoencoder GAN, the activation maps, the function
+API ``train.protocol.mr_gan`` and offline preprocessing
+(``data.preprocess.run``, ``cli.preprocess``).
 
 Nothing here imports JAX, scikit-learn, JAX's checkpoint library or the
 JAX package: the machine with the card has none of them.

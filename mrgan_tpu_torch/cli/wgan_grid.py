@@ -14,8 +14,11 @@ same lines as ``python wganlpctsemi.py``:
 Folds come from ``train.protocol.stratified_splits`` with the reference's
 seed 54321 (a copy of scikit-learn's ``StratifiedKFold``); each fold is
 scaled on the host (``variants.baselines.pca_scale``) and trains on the
-device. ``-a svm`` and ``-a rf`` run scikit-learn's estimators and raise
-where it is not installed.
+device. ``-a svm`` (the linear SVC of every grid) solves natively by
+default: the Gram matrices on the device, the dual by the in-tree SMO;
+``-a rf`` fits the in-tree forest (``train.forest``). The scikit-learn
+routes of ``--svm-solver`` / ``--rf-solver`` run its estimators instead,
+and raise where it is not installed.
 """
 
 import argparse
@@ -150,10 +153,11 @@ def algorithm_config(algorithm, epochs=None):
 
 
 def run_fold(algorithm, x_tr, y_tr, x_te, y_te, fraction, pca, scale, kernel,
-             *, device, cfg=None):
+             *, device, cfg=None, svm_solver="native", rf_solver="native"):
     """One fold's accuracy: host scaling, the labeled fraction drawn with
     the reference's seed 54321, training on ``device``. ``cfg`` overrides
-    :func:`algorithm_config`'s."""
+    :func:`algorithm_config`'s; ``svm_solver`` / ``rf_solver`` pick the
+    routes of -a svm / rf (``baselines.learn_svm`` / ``learn_rf``)."""
     x_tr, x_te = baselines.pca_scale(x_tr, x_te, pca=pca, scale=scale)
     y_tr = np.asarray(y_tr, np.int32)
     rng = np.random.RandomState(54321)  # the reference's enforced seed
@@ -187,9 +191,11 @@ def run_fold(algorithm, x_tr, y_tr, x_te, y_te, fraction, pca, scale, kernel,
                                       device=device)
     if algorithm == "svm":
         return baselines.learn_svm(x_lab, y_lab, x_te, y_te,
-                                   kernel=kernel or 0)
+                                   kernel=kernel or 0, solver=svm_solver,
+                                   device=device)
     if algorithm == "rf":
-        return baselines.learn_rf(x_lab, y_lab, x_te, y_te)
+        return baselines.learn_rf(x_lab, y_lab, x_te, y_te,
+                                  solver=rf_solver)
     raise ValueError(algorithm)
 
 
@@ -234,6 +240,15 @@ def build_parser():
                         help="Synthetic spectrometer objects per material")
     parser.add_argument("--synthetic-samples", type=int, default=20,
                         help="Synthetic spectrometer samples per object")
+    parser.add_argument("--svm-solver", choices=baselines.SVM_SOLVERS,
+                        default="native",
+                        help="-a svm: native (default; the Gram matrices on "
+                             "the device, the in-tree SMO) or libsvm "
+                             "(scikit-learn's SVC)")
+    parser.add_argument("--rf-solver", choices=baselines.RF_SOLVERS,
+                        default="native",
+                        help="-a rf: native (default; the in-tree forest) or "
+                             "scikit-learn's RandomForestClassifier")
     parser.add_argument("--device", default="cuda",
                         help="Torch device to train on: cuda (default), "
                              "cuda:N or cpu; cuda without a card raises")
@@ -252,7 +267,8 @@ def main(argv=None):
 
     def fold(x_tr, y_tr, x_te, y_te, fraction, pca, scale, kernel):
         return run_fold(algorithm, x_tr, y_tr, x_te, y_te, fraction, pca,
-                        scale, kernel, device=device)
+                        scale, kernel, device=device,
+                        svm_solver=args.svm_solver, rf_solver=args.rf_solver)
 
     load_kw = dict(
         modalities=2,

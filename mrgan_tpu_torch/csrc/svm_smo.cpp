@@ -65,7 +65,9 @@ int64_t svm_smo_train(const float* gram, const int8_t* y, int64_t n,
     const double old_ai = alpha[i], old_aj = alpha[j];
 
     if (y[i] != y[j]) {
-      double quad = kii + kjj + 2.0 * kij;  // Q_ii + Q_jj - 2 Q_ij, y_iy_j=-1
+      // Q_ii + Q_jj - 2 y_i y_j Q_ij with Q_ij = y_i y_j K_ij = -K_ij, as
+      // libsvm's QD[i] + QD[j] + 2 Q_i[j]
+      double quad = kii + kjj - 2.0 * kij;
       if (quad <= 0.0) quad = kTau;
       const double delta = (-G[i] - G[j]) / quad;
       const double diff = alpha[i] - alpha[j];

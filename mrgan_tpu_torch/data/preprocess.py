@@ -1,24 +1,44 @@
-"""Impact windowing of raw acquisition batches (the serving half).
+"""Offline preprocessing: raw acquisition pickles -> processed MREO pickles,
+and the impact windowing that serving shares.
 
-Port of ``process_sequences`` from ``mrgan_tpu/data/preprocess.py``
-(processdata.py:41-85 semantics):
+Port of ``mrgan_tpu/data/preprocess.py`` (processdata.py:10-92 semantics):
+
+- 14 (durationOfContact, contactAccelLength) configs (processdata.py:10);
 
 - force/pressure/temperature windows: [impact-0.1 s, impact+duration], the
   post index clamping to the stream end, resampled to 100*duration points
   on a linspace between the window's first and last sample times;
 - force taxels 3 and 4; temperature Celsius channel [:, 1];
 - contact mic: impact +/- duration/2 with the reference's off-by-one grid
-  start, resampled to 48000*duration points.
+  start, resampled to 48000*duration points;
+- accelerometer streams are read but never stored, like the reference;
+- the output pickle schema and the 'custom_processed_0.1sbefore_...' writer
+  name latch (loaders read the unprefixed 'processed_...' name).
 
 Ragged streams are padded on the host and each stream's pokes run as one
 batched gather+lerp on ``device`` (ops.resample), in float32 like the JAX
-package. The offline ``run`` over raw pickle directories is not ported yet.
+package; the offline ``run`` stores float64, the reference's on-disk type.
 """
+
+import glob
+import os
+import pickle
+import sys
+import time
 
 import numpy as np
 import torch
 
+from .. import MATERIALS
 from ..ops import resample
+
+# (durationOfContact, contactAccelLength) pairs, processdata.py:10
+CONFIGS = list(
+    zip(
+        [4, 3, 2, 1, 0.5, 0.2, 0.1, 4, 4, 4, 4, 4, 4, 4],
+        [0.2, 0.2, 0.2, 0.2, 0.2, 0.2, 0.2, 1, 0.7, 0.5, 0.3, 0.2, 0.1, 0.05],
+    )
+)
 
 TAXEL_1, TAXEL_2 = 3, 4  # processdata.py:51-53
 
@@ -92,3 +112,61 @@ def process_sequences(raw, duration, contact_len, streams=None,
         out["contactTime"] = list(np.asarray(c_grid, out_dtype))
         out["contact"] = list(np.asarray(cm, out_dtype))
     return out
+
+
+def _object_name(filename):
+    return "_".join(os.path.basename(filename).split("_")[1:3])
+
+
+def process_material(material, duration, contact_len, raw_dir="data_raw",
+                     verbose=True, out_dtype=np.float32, *, device):
+    """All raw files of one material -> {object: processed streams}, the
+    windows computed on ``device``."""
+    filenames = sorted(glob.glob(os.path.join(raw_dir,
+                                              "newdata_%s*.pkl" % material)))
+    all_data = {}
+    for filename in filenames:
+        obj = _object_name(filename)
+        with open(filename, "rb") as f:
+            raw = pickle.load(f, encoding="latin1")
+        if verbose:
+            print("Processing:", filename)
+            tt = time.time()
+        processed = process_sequences(raw, duration, contact_len,
+                                      out_dtype=out_dtype, device=device)
+        dest = all_data.setdefault(obj, {k: [] for k in processed})
+        for k, v in processed.items():
+            dest[k].extend(v)
+        if verbose:
+            print("Done processing file", time.time() - tt, "s")
+            sys.stdout.flush()
+    return all_data
+
+
+def run(raw_dir="data_raw", out_dir="data_processed", configs=None,
+        prefix="custom_", verbose=True, out_dtype=np.float64, *, device):
+    """The full pipeline over all configs x materials (processdata.py's
+    module loop), the windows computed on ``device``.
+
+    ``prefix``: the reference writes 'custom_processed_...' while its loaders
+    read 'processed_...' (a safety latch so a rerun can't clobber the
+    distributed dataset); pass prefix='' to write loader-visible files.
+    """
+    os.makedirs(out_dir, exist_ok=True)
+    for duration, contact_len in (configs or CONFIGS):
+        if verbose:
+            print("-" * 50)
+            print("Force/temperature duration:", duration,
+                  "| Contact mic/accel duration:", contact_len)
+            print("-" * 50)
+        for material in MATERIALS:
+            all_data = process_material(material, duration, contact_len,
+                                        raw_dir, verbose,
+                                        out_dtype=out_dtype, device=device)
+            out_path = os.path.join(
+                out_dir,
+                "%sprocessed_0.1sbefore_%s_times_%.2f_%.2f.pkl"
+                % (prefix, material, duration, contact_len),
+            )
+            with open(out_path, "wb") as f:
+                pickle.dump(all_data, f, pickle.HIGHEST_PROTOCOL)

@@ -1,12 +1,12 @@
-"""Synthetic MREO dataset generator: the part ``generate_processed`` reaches.
+"""Synthetic MREO dataset generator.
 
 Port of ``mrgan_tpu/data/synthetic.py`` (numpy and scipy only, as there):
-the constants, ``_sensor_lag`` and ``generate_processed`` are copied line for
-line and draw in exactly the same order, so the same seed gives the same
-arrays bit for bit (held by ``tests/test_torch_synthetic.py``). Any change
-to the original's distributions bumps ``GENERATOR_VERSION`` there and must
-be copied here. ``generate_raw_file`` (the raw acquisition schema) is not
-ported yet (``ROADMAP.md`` A10).
+the constants, ``_sensor_lag``, ``generate_processed`` and
+``generate_raw_file`` (one raw acquisition pickle, for the offline
+preprocessing of ``data.preprocess``) are copied line for line and draw in
+exactly the same order, so the same seed gives the same arrays bit for bit
+(held by the CPU tests). Any change to the original's distributions bumps
+``GENERATOR_VERSION`` there and must be copied here.
 
 The stand-in has the processed-pickle schema and shapes of the real set:
 6 materials x 12 objects x ``pokes_per_object`` pokes of temperature,
@@ -31,6 +31,11 @@ from .. import MATERIALS
 # proxy-loop iterations (tools/proxy_grid.py; targets from the r4i3
 # full-fidelity gate failures, VERDICT r4 weak #1).
 GENERATOR_VERSION = "r5.4"
+
+# Raw-stream sample rates (Hz): PR2 fingertip force/pressure, Teensy thermal
+# telemetry (active_thermal_magnum_opus.ino:113-121 emits at 100 Hz), contact
+# mic ADC stream (teensy_contactmic.ino free-running, ~48 kHz class).
+RAW_RATES = {"force": 1000.0, "temperature": 100.0, "contact": 48000.0}
 
 # (temp_drop degC, tau s, stiffness, resonance Hz, audio decay /s, ring amp)
 #
@@ -162,6 +167,96 @@ SR = 48000
 
 def _object_names(material, n_objects):
     return [f"{material}_obj{k}" for k in range(n_objects)]
+
+
+def generate_raw_file(seed=0, material="plastic", pokes=4, record_s=5.5,
+                      impact_s=0.8, jitter=True, dtype=np.float64):
+    """Synthesize one raw acquisition pickle with the collectdataPoke.py save
+    schema consumed by processdata.py:41 — per-poke parallel lists:
+    temperatureRaw (T,2), temperatureTime, RGripRFingerForce (T,5 taxels),
+    RGripRFingerPressure, RGripRFingerTime, contactmic (T,), contactmicTime,
+    accelerometer, accelerometerTime, collisionTime (scalar).
+
+    Streams are irregularly sampled (timestamp jitter) so the lerp resampler
+    is exercised on realistic input.
+
+    ``dtype`` sets the stored sample dtype. The real acquisition stack moves
+    every stream through ROS ``Float64MultiArray`` messages
+    (collectdataPoke.py:97-100, temperaturepublisher.py:59-61), so the real
+    raw pickles hold float64 — the default mirrors that; float32 halves the
+    fabricated footprint for tests. Timestamps are always float64 (rospy
+    wall-clock semantics).
+    """
+    rng = np.random.RandomState(seed)
+    drop, tau, stiff, f_res, decay, amp = _MATERIAL_PHYSICS[material]
+    out = {k: [] for k in (
+        "temperatureRaw", "temperatureTime", "RGripRFingerForce",
+        "RGripRFingerPressure", "RGripRFingerTime", "contactmic",
+        "contactmicTime", "accelerometer", "accelerometerTime",
+        "collisionTime",
+    )}
+
+    def times(rate):
+        n = int(record_s * rate)
+        t = np.arange(n) / rate
+        if jitter:
+            t = t + rng.uniform(0, 0.2 / rate, n)
+        return np.sort(t)
+
+    for _ in range(pokes):
+        impact = impact_s + rng.uniform(-0.05, 0.05)
+
+        t_f = times(RAW_RATES["force"])
+        contact_t = np.maximum(t_f - impact, 0.0)
+        ramp = np.clip(contact_t / 0.05, 0.0, 1.0)
+        peak = 3.0 + 4.0 * stiff
+        base = peak * ramp + 0.05 * rng.randn(len(t_f))
+        force = np.zeros((len(t_f), 5), dtype)
+        force[:, 3] = base
+        force[:, 4] = 0.8 * base
+        pressure = (force * 20.0 + 5.0).astype(dtype)
+
+        t_t = times(RAW_RATES["temperature"])
+        cool = drop * (1.0 - np.exp(-np.maximum(t_t - impact, 0.0) / tau))
+        celsius = 55.0 - cool + 0.05 * rng.randn(len(t_t))
+        # channel 0 is the firmware's raw ADC count (integer-valued, like
+        # the mic below — active_thermal_magnum_opus.ino:113-121 prints
+        # "raw,celsius"); channel 1 the converted Celsius float
+        temp = np.stack(
+            [np.round(celsius * 37.0 + 500.0), celsius], axis=1
+        ).astype(dtype)
+
+        t_c = times(RAW_RATES["contact"])
+        tc = t_c - impact
+        burst = (
+            amp * 200.0 * np.exp(-np.maximum(tc, 0.0) * decay)
+            * np.sin(2 * np.pi * f_res * tc) * (tc >= 0.0)
+        )
+        # The contact-mic stream is INTEGER-VALUED: the Teensy firmware
+        # emits raw 12-bit analogRead counts (teensy_contactmic.ino:12-15,
+        # one int per line), which the publisher forwards and the collector
+        # stores as float64 ROS array elements. Quantizing to ADC counts
+        # around the 2048 midpoint mirrors those bytes — and is why the
+        # real 10 GB raw download compresses so much better than
+        # continuous-valued floats would (integer-valued float64 mantissas
+        # are mostly zeros; measured by the rehearsal fabricate stage).
+        mic = np.round(2048.0 + burst
+                       + 2.0 * rng.randn(len(t_c))).astype(dtype)
+
+        accel_t = times(3000.0)[: int(3000 * record_s)]
+        accel = 0.01 * rng.randn(len(accel_t)).astype(dtype)
+
+        out["temperatureRaw"].append(temp)
+        out["temperatureTime"].append(t_t)
+        out["RGripRFingerForce"].append(force)
+        out["RGripRFingerPressure"].append(pressure)
+        out["RGripRFingerTime"].append(t_f)
+        out["contactmic"].append(mic)
+        out["contactmicTime"].append(t_c)
+        out["accelerometer"].append(accel)
+        out["accelerometerTime"].append(accel_t)
+        out["collisionTime"].append(impact)
+    return out
 
 
 def generate_processed(seed=0, forcetemp_time=4.0, contactmic_time=0.2,

@@ -52,6 +52,20 @@ def interp(x, xp, fp):
     return torch.where(x > xp[:, -1:], fp[:, -1:], f)
 
 
+def interp1d_batch(x, y, x_new):
+    """Linear interpolation over a leading batch axis (the JAX package's
+    ``interp1d_batch``, ``jax.vmap(jnp.interp)``).
+
+    Args:
+      x:     (B, N) sorted sample times.
+      y:     (B, N) sample values.
+      x_new: (B, M) query times (within [x[0], x[-1]] per row, matching
+             scipy.interp1d's no-extrapolation contract).
+    Returns (B, M) interpolated values, on the tensors' device.
+    """
+    return interp(x_new, x, y)
+
+
 def _first_index_greater(t, thresh, valid):
     """np.argmax(t > thresh) over valid entries, as used at processdata.py:56.
 

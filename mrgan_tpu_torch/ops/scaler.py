@@ -7,6 +7,7 @@ the column's magnitude, e.g. mel bins pinned at the top_db floor) pass
 through too: dividing by an f32 cancellation-noise std amplifies junk ~1e6x.
 """
 
+import numpy as np
 import torch
 
 # Column std at or below NEAR_CONSTANT_RTOL * max(1, |mean|) is treated as
@@ -28,3 +29,12 @@ def fit(x_train):
 
 def transform(x, mean, scale):
     return (x - mean) / scale
+
+
+def fit_numpy(x_train):
+    """The host (numpy) twin of :func:`fit` for (N, D) rows, for fold prep
+    before the upload (``train.protocol.scale_fold``)."""
+    mean = x_train.mean(axis=0)
+    std = x_train.std(axis=0)
+    std[std <= NEAR_CONSTANT_RTOL * np.maximum(1.0, np.abs(mean))] = 1.0
+    return mean, std

@@ -1,15 +1,21 @@
 """ctypes bindings for the in-tree SMO solver (``csrc/svm_smo.cpp``).
 
-Port of ``mrgan_tpu/train/native_svm.py``. The source is a byte-for-byte
-copy of ``native/svm_smo.cpp`` (held equal by a CPU test). It is built at
-first use with the host C++ compiler into
+Port of ``mrgan_tpu/train/native_svm.py``. The source is a copy of
+``native/svm_smo.cpp`` with one line corrected: the step's curvature for a
+pair of opposite labels is K_ii + K_jj - 2 K_ij, as libsvm's QD[i] + QD[j]
++ 2 Q_i[j] is (the reference adds 2 K_ij: its steps are too short on RBF
+Gram matrices and overshoot on linear ones, where it cycles to the
+iteration cap). A CPU test holds the copy to the reference line for line.
+It is built at first use with the host C++ compiler into
 ``build/mrgan_tpu_torch/libsvmsmo_<source hash>.so`` and loaded with
 ctypes, as ``ops.mel_cuda`` builds its kernel; a failed build raises.
 
-The card computes the RBF Gram matrices (``train.svm``); this module solves
-the C-SVC dual on them on the host, without the libsvm the reference
-reaches through scikit-learn's SVC (mr_svm.py:106). Multiclass is one-vs-one
-with majority voting and (like libsvm) decision-sum tie-breaking.
+The card computes the RBF or linear Gram matrices (``train.svm``); this
+module solves the C-SVC dual on them on the host, without the libsvm the
+reference reaches through scikit-learn's SVC (mr_svm.py:106). Multiclass is
+one-vs-one with majority voting, a tie going to the first class of most
+votes as in libsvm (the reference breaks ties by the summed decision
+values).
 """
 
 import ctypes
@@ -135,16 +141,13 @@ class OvoSVC:
         k_test = np.asarray(k_test, np.float64)
         m = len(k_test)
         votes = np.zeros((m, len(self.classes_)), np.int64)
-        scores = np.zeros((m, len(self.classes_)), np.float64)
         for a, bq, rows, coef, b in self._pairs:
             dec = k_test[:, rows] @ coef + b
             win = np.where(dec > 0, a, bq)
             votes[np.arange(m), win] += 1
-            scores[:, a] += dec
-            scores[:, bq] -= dec
-        # majority vote; break ties by the summed decision values
-        best = votes + 1e-9 * np.tanh(scores)
-        return self.classes_[np.argmax(best, axis=1)]
+        # majority vote; a tie goes to the first class of most votes, as in
+        # libsvm's svm_predict_values (scikit-learn's labels are sorted)
+        return self.classes_[np.argmax(votes, axis=1)]
 
     def score(self, k_test, y_test):
         return float(np.mean(self.predict(k_test) == np.asarray(y_test)))

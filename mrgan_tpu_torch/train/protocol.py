@@ -4,15 +4,19 @@ object-out.
 Port of ``mrgan_tpu/train/protocol.py`` (``DeviceDataset``,
 ``fold_indices``, ``stratified_splits``, ``run_gan_cell``,
 ``run_indexed_folds``, ``run_gan_loo``, ``loo_chunk``,
-``iter_loo_blocks``). The fold and labeled-row choices are numpy code on
-the host, copied so that the same seed picks the same rows as the JAX
-package; ``stratified_splits`` is
-a numpy copy of scikit-learn's ``StratifiedKFold(shuffle=True)``, which the
-machine with the card does not have. Training runs every fold of a cell in
-one launch of the fold-stacked trainer (``train.gan``); a leave-one-object-
-out block of 6 objects is one launch too. The JAX package's per-launch byte
-budget and its mesh routes were TPU calibrations and are not ported: the
-widest launch (6 Table-5 folds at 12,032 features) fits in 80 GB.
+``iter_loo_blocks``; the host fold API ``select_labeled``, ``scale_fold``,
+``prepare_fold``, ``stack_folds``, ``loo_splits`` and
+``run_prepared_folds``; the function API ``mr_gan``). The fold and
+labeled-row choices are numpy code on the host, copied so that the same
+seed picks the same rows as the JAX package; ``stratified_splits`` is a
+numpy copy of scikit-learn's ``StratifiedKFold(shuffle=True)``, and
+``mr_gan``'s split one of its stratified ``train_test_split``
+(``train.splits``), which the machine with the card does not have.
+Training runs every fold of a cell in one launch of the fold-stacked
+trainer (``train.gan``); a leave-one-object-out block of 6 objects is one
+launch too. The JAX package's per-launch byte budget and its mesh routes
+were TPU calibrations and are not ported: the widest launch (6 Table-5
+folds at 12,032 features) fits in 80 GB.
 
 Every entry point that uploads data takes the device as a required keyword:
 nothing falls back to the CPU.
@@ -24,8 +28,10 @@ import time
 import numpy as np
 import torch
 
+from ..ops import scaler as ops_scaler
+from ..utils import device as device_lib
 from ..utils import rng as rng_util
-from . import gan
+from . import gan, splits as splits_lib
 
 
 class DeviceDataset:
@@ -119,6 +125,113 @@ def stratified_splits(y, n_splits=6, seed=None):
     indices = np.arange(len(y))
     return [(indices[test_folds != i], indices[test_folds == i])
             for i in range(n_splits)]
+
+
+# --------------------------------------------------------------------------
+# The host fold API (prepared folds as numpy arrays)
+# --------------------------------------------------------------------------
+
+def select_labeled(x_train, y_train, num_per_class, num_classes, rng):
+    """mr_gan.py:101-103: shuffle, then first-n-per-class. Returns
+    (x_labeled, y_labeled int32, x_shuffled, y_shuffled)."""
+    perm = rng.permutation(len(x_train))
+    x_train = x_train[perm]
+    y_train = y_train[perm]
+    xs, ys = [], []
+    for j in range(num_classes):
+        xs.append(x_train[y_train == j][:num_per_class])
+        ys.append(np.full(min(num_per_class, (y_train == j).sum()), j,
+                          np.int32))
+    return np.concatenate(xs, 0), np.concatenate(ys, 0), x_train, y_train
+
+
+def scale_fold(x_train, x_test):
+    """StandardScaler semantics with the near-constant guard of
+    ``ops.scaler`` (its numpy fit), fit on the train rows."""
+    mean, std = ops_scaler.fit_numpy(x_train)
+    return (x_train - mean) / std, (x_test - mean) / std
+
+
+def prepare_fold(x_train, y_train, x_test, y_test, percentlabeled,
+                 percentunlabeled=None, num_classes=6, rng=None):
+    """One fold's scaled arrays (mr_gan.py:87-107): the labeled rows, the
+    unlabeled pool (the whole scaled train split when ``percentunlabeled``
+    is None) and the test rows, as numpy, ready for :func:`stack_folds`."""
+    rng = rng or np.random
+    n_lab = int(10 * percentlabeled)
+    x_train = np.asarray(x_train, np.float32)
+    x_test = np.asarray(x_test, np.float32)
+    x_train, x_test = scale_fold(x_train, x_test)
+    x_labeled, y_labeled, x_shuf, y_shuf = select_labeled(
+        x_train, y_train, n_lab, num_classes, rng)
+    if percentunlabeled is not None:
+        n_unl = n_lab + int(10 * percentunlabeled)
+        pool = np.concatenate(
+            [x_shuf[y_shuf == j][:n_unl] for j in range(num_classes)], 0)
+    else:
+        pool = x_train
+    return {
+        "x_labeled": x_labeled.astype(np.float32),
+        "y_labeled": y_labeled.astype(np.int32),
+        "pool": pool.astype(np.float32),
+        "x_test": x_test.astype(np.float32),
+        "y_test": np.asarray(y_test, np.int32),
+        "n_train": len(x_train),
+    }
+
+
+FOLD_KEYS = ("x_labeled", "y_labeled", "pool", "x_test", "y_test")
+
+
+def stack_folds(folds):
+    """Prepared folds stacked on a leading fold axis (numpy)."""
+    return {k: np.stack([f[k] for f in folds]) for k in FOLD_KEYS} | {
+        "n_train": folds[0]["n_train"]}
+
+
+def loo_splits(objects):
+    """Leave-one-object-out splits from a {name: {'x','y'}} dict
+    (mr_gan.py:274-279). Yields (name, x_train, y_train, x_test, y_test)."""
+    names = list(objects.keys())
+    for name in names:
+        x_test = np.array(objects[name]["x"])
+        y_test = np.array(objects[name]["y"])
+        x_train = np.concatenate(
+            [np.array(objects[n]["x"]) for n in names if n != name], 0)
+        y_train = np.concatenate(
+            [np.array(objects[n]["y"]) for n in names if n != name], 0)
+        yield name, x_train, y_train, x_test, y_test
+
+
+def upload_stacked(stacked, device, pad_multiple=1, pad_min=0):
+    """A :func:`stack_folds` dict as tensors on ``device``: features padded
+    to ``pad_multiple`` / ``pad_min``, labels int64. Returns (the five
+    tensors by key, the unpadded feature width)."""
+    out = {}
+    for k in FOLD_KEYS:
+        a = np.asarray(stacked[k])
+        if k.startswith("y"):
+            out[k] = torch.as_tensor(a.astype(np.int64), device=device)
+        else:
+            out[k], valid_dim = gan.pad_features(
+                torch.as_tensor(a, dtype=torch.float32, device=device),
+                pad_multiple, pad_min)
+    return out, valid_dim
+
+
+def run_prepared_folds(folds, cfg, rng, *, device):
+    """Pad, stack and train a list of prepared folds in one launch of the
+    fold-stacked trainer on ``device``; the trainer's generator is seeded
+    from one ``rng.randint`` draw, as the JAX package's keys are. Returns
+    the (F,) test errors as numpy."""
+    device = device_lib.resolve(device)
+    stacked = stack_folds(folds)
+    data, valid_dim = upload_stacked(stacked, device, cfg.pad_multiple,
+                                     cfg.pad_min)
+    generator = rng_util.make_generator(rng.randint(2**31 - 1), device)
+    errors, _aux = gan.train_folds(generator, n_train=stacked["n_train"],
+                                   valid_dim=valid_dim, cfg=cfg, **data)
+    return errors
 
 
 # --------------------------------------------------------------------------
@@ -259,3 +372,44 @@ def iter_loo_blocks(names, offs, y_host, percentlabeled, num_classes, rng,
         while len(idx) < min(chunk, len(names)):  # pad short final chunk
             idx.append(idx[0])
         yield block, idx, n_real
+
+
+# --------------------------------------------------------------------------
+# The function API
+# --------------------------------------------------------------------------
+
+def mr_gan(X, y, percentlabeled=50, percentunlabeled=None, epochs=None,
+           trainTestSets=None, verbose=False, seed=None, cfg=None, *,
+           device="cuda"):
+    """Reference-API standalone training (mr_gan.py:73-88): one GAN training
+    with an INTERNAL stratified split when ``trainTestSets`` is None
+    (``train_test_split(test_size=200*6, stratify=y)``, copied in
+    ``train.splits``); returns the scalar test error. An explicit
+    ``epochs`` wins over ``cfg``; ``seed=None`` de-seeds from numpy's global
+    stream, as mr_gan.py:75 does ("Non Deterministic output")."""
+    device = device_lib.resolve(device)
+    if cfg is None:
+        cfg = gan.GanConfig(epochs=100 if epochs is None else epochs)
+    elif epochs is not None:
+        cfg = dataclasses.replace(cfg, epochs=epochs)
+    if seed is None:
+        seed = np.random.randint(2**31 - 1)
+    if trainTestSets is None:
+        x_all, y_all = np.asarray(X, np.float32), np.asarray(y, np.int32)
+        tr, te = splits_lib.stratified_train_test_split(
+            y_all, test_size=200 * cfg.num_classes, random_state=seed)
+    else:
+        x_train, x_test, y_train, y_test = trainTestSets
+        x_all = np.concatenate([np.asarray(x_train, np.float32),
+                                np.asarray(x_test, np.float32)])
+        y_all = np.concatenate([np.asarray(y_train, np.int32),
+                                np.asarray(y_test, np.int32)])
+        tr = np.arange(len(y_train))
+        te = np.arange(len(y_train), len(y_all))
+    if verbose:
+        print("Num of class examples in test set:",
+              [int(np.sum(y_all[te] == i)) for i in range(cfg.num_classes)])
+    errs = run_gan_cell(x_all, y_all, percentlabeled=percentlabeled,
+                        percentunlabeled=percentunlabeled, cfg=cfg, seed=seed,
+                        splits=[(tr, te)], verbose=verbose, device=device)
+    return float(errs[0])

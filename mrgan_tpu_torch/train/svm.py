@@ -64,6 +64,12 @@ def rbf_kernel(a, b, gamma):
     return torch.exp(-gamma * torch.clamp(d2, min=0.0))
 
 
+def linear_kernel(a, b):
+    """a . b^T for rows of a (..., n, d) and b (..., m, d) -> (..., n, m):
+    the Gram matrix of ``SVC(kernel="linear")``, one matmul."""
+    return torch.matmul(a, b.transpose(-1, -2))
+
+
 def _gamma(cfg, x):
     return cfg.gamma if cfg.gamma is not None else 1.0 / x.shape[-1]
 

@@ -7,8 +7,15 @@ Port of ``mrgan_tpu/variants/baselines.py``:
 - 'lstm' the 3-layer biLSTM(16) over the feature vector as a scalar
          sequence, 100 epochs, batch 128 (:187-203), through the recurrence
          kernels on a CUDA device (``ops/lstm.py``);
-- 'svm'  / 'rf' scikit-learn's SVC/NuSVC/LinearSVC zoo and random forest
-         (:204-221), where scikit-learn is installed.
+- 'svm'  the SVC/NuSVC/LinearSVC zoo (:204-214). The grid's only kernel,
+         1 (``SVC(kernel="linear")``, C = 1), has a native route (the
+         default): the linear Gram matrices on the device
+         (``train.svm.linear_kernel``), the dual on the host by the in-tree
+         SMO (``train.native_svm``). ``solver="libsvm"`` and the other
+         kernels run scikit-learn, and raise where it is not installed;
+- 'rf'   ``RandomForestClassifier(n_estimators=10, random_state=seed)``
+         (:215-221): natively ``train.forest`` (the default), or
+         scikit-learn's own, which then must be installed.
 
 All return ACCURACY, the variant's convention. The trainers take one fold
 (a leading fold axis of 1), draw each epoch's permutation and dropout masks
@@ -20,13 +27,14 @@ with the card does not have.
 
 import dataclasses
 import importlib
+import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..models import variant_nets as vnets
-from ..train import optim, schedule
+from ..train import forest, native_svm, optim, schedule, svm as svm_train
 from ..utils import rng as rng_util
 from ..utils import tree
 
@@ -257,7 +265,7 @@ def learn_bilstm(x_lab, y_lab, x_test, y_test, cfg=BiLstmConfig(), seed=0, *,
 
 
 # --------------------------------------------------------------------------
-# SVM kernel zoo and random forest (scikit-learn)
+# SVM kernel zoo and random forest
 # --------------------------------------------------------------------------
 
 def _scikit_learn(module, what):
@@ -271,8 +279,44 @@ def _scikit_learn(module, what):
                            "here" % what) from e
 
 
-def learn_svm(x_lab, y_lab, x_test, y_test, kernel=0):
-    svm_lib = _scikit_learn("svm", "-a svm")
+SVM_SOLVERS = ("native", "libsvm")
+RF_SOLVERS = ("native", "sklearn")
+NATIVE_SVM_KERNELS = (1,)
+
+
+def _check(solver, solvers, what):
+    if solver not in solvers:
+        raise ValueError("%s solver must be one of %s, got %r"
+                         % (what, solvers, solver))
+
+
+def learn_svm(x_lab, y_lab, x_test, y_test, kernel=0, solver="native",
+              device=None, timings=None):
+    """The test accuracy of the kernel zoo's model ``kernel`` (0 rbf SVC, 1
+    linear SVC, 2 rbf NuSVC, 3 linear NuSVC, 4 LinearSVC). Kernel 1 on the
+    native solver: the linear Gram matrices on ``device`` (then required),
+    the one-vs-one dual by the in-tree SMO on the host; ``timings``, an
+    optional dict, receives the seconds of the Gram ("gram_s", the host copy
+    included) and of the solve ("solve_s"). Every other kernel, and
+    ``solver="libsvm"``, runs scikit-learn."""
+    _check(solver, SVM_SOLVERS, "svm")
+    if solver == "native" and kernel in NATIVE_SVM_KERNELS:
+        if device is None:
+            raise ValueError("the native svm solver needs device= (nothing "
+                             "falls back to the CPU)")
+        t0 = time.perf_counter()
+        xl, xt = (torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                  device=device) for a in (x_lab, x_test))
+        k_train = svm_train.linear_kernel(xl, xl).cpu().numpy()
+        k_test = svm_train.linear_kernel(xt, xl).cpu().numpy()
+        t1 = time.perf_counter()
+        model = native_svm.OvoSVC(C=1.0).fit(k_train, np.asarray(y_lab))
+        accuracy = model.score(k_test, np.asarray(y_test))
+        if timings is not None:
+            timings.update(gram_s=t1 - t0, solve_s=time.perf_counter() - t1)
+        return accuracy
+    svm_lib = _scikit_learn("svm", "-a svm (kernel %d, %s)" % (kernel,
+                                                                solver))
     models = {
         0: lambda: svm_lib.SVC(kernel="rbf"),
         1: lambda: svm_lib.SVC(kernel="linear"),
@@ -285,9 +329,21 @@ def learn_svm(x_lab, y_lab, x_test, y_test, kernel=0):
     return float(svm.score(x_test, y_test))
 
 
-def learn_rf(x_lab, y_lab, x_test, y_test, n_estimators=10, seed=0):
-    ensemble = _scikit_learn("ensemble", "-a rf")
-    model = ensemble.RandomForestClassifier(n_estimators=n_estimators,
-                                            random_state=seed)
+def learn_rf(x_lab, y_lab, x_test, y_test, n_estimators=10, seed=0,
+             solver="native", timings=None):
+    """The test accuracy of a random forest of ``n_estimators`` trees:
+    ``train.forest`` on the host (native), or scikit-learn's. ``timings``
+    receives the fit's seconds ("fit_s")."""
+    _check(solver, RF_SOLVERS, "rf")
+    t0 = time.perf_counter()
+    if solver == "native":
+        model = forest.RandomForest(n_estimators=n_estimators,
+                                    random_state=seed)
+    else:
+        ensemble = _scikit_learn("ensemble", "-a rf (%s)" % solver)
+        model = ensemble.RandomForestClassifier(n_estimators=n_estimators,
+                                                random_state=seed)
     model.fit(x_lab, y_lab)
+    if timings is not None:
+        timings["fit_s"] = time.perf_counter() - t0
     return float(model.score(x_test, y_test))

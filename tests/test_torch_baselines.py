@@ -183,8 +183,22 @@ def test_a_dataset_and_a_label_share_in_ys_place_are_refused():
 # --------------------------------------------------------------------------
 
 def test_smo_source_is_a_byte_for_byte_copy():
+    """The copy equals native/svm_smo.cpp line for line but for the
+    corrected curvature of a pair of opposite labels (libsvm's QD[i] +
+    QD[j] + 2 Q_i[j] = K_ii + K_jj - 2 K_ij; the reference adds 2 K_ij)."""
     native = native_svm.SOURCE.parents[2] / "native" / "svm_smo.cpp"
-    assert native_svm.SOURCE.read_bytes() == native.read_bytes()
+    ours = native_svm.SOURCE.read_text().splitlines()
+    theirs = native.read_text().splitlines()
+    fixed = "      double quad = kii + kjj - 2.0 * kij;"
+    wrong = ("      double quad = kii + kjj + 2.0 * kij;  "
+             "// Q_ii + Q_jj - 2 Q_ij, y_iy_j=-1")
+    i = theirs.index(wrong)
+    assert ours[:i] == theirs[:i]
+    assert ours[i:i + 3] == [
+        "      // Q_ii + Q_jj - 2 y_i y_j Q_ij with Q_ij = y_i y_j K_ij = "
+        "-K_ij, as",
+        "      // libsvm's QD[i] + QD[j] + 2 Q_i[j]", fixed]
+    assert ours[i + 3:] == theirs[i + 1:]
     assert native_svm.library_path().name.startswith("libsvmsmo_")
 
 

@@ -41,7 +41,11 @@ def test_port_imports_without_jax():
                  "utils.metrics", "utils.checkpoint", "utils.stamp",
                  "ops.lstm", "ops.lstm_cuda", "models.variant_nets",
                  "variants.wgan", "variants.baselines", "data.spectrometer",
-                 "cli.wgan_grid"):
+                 "cli.wgan_grid", "train.splits", "train.forest",
+                 "variants.autoencoder", "cli.autoencoder",
+                 "variants.activation_maps", "cli.activation_map",
+                 "data.preprocess", "cli.preprocess", "data.py2pickle",
+                 "ops.resample"):
         assert "mrgan_tpu_torch." + name in names
     proc = subprocess.run(
         [sys.executable, "-c", _CHILD, *names], cwd=ROOT,
@@ -58,20 +62,22 @@ def test_port_sources_name_no_jax():
                   if f.endswith((".py", ".cu"))]
     # the places scikit-learn is named: the lazy imports of the
     # --svm-solver libsvm route and of the variant zoo's scikit-learn
-    # estimators (-a svm / rf, pca > 0); the child above proves importing
-    # the modules does not reach them
+    # estimators (-a svm / rf, pca > 0), and the name of the --rf-solver
+    # route that reaches them; the child above proves importing the modules
+    # does not reach them
     lazy = {
         os.path.join(ROOT, "mrgan_tpu_torch", "train", "svm.py"):
-            "from sklearn.svm import SVC",
+            ["from sklearn.svm import SVC"],
         os.path.join(ROOT, "mrgan_tpu_torch", "variants", "baselines.py"):
-            'importlib.import_module("sklearn." + module)',
+            ['importlib.import_module("sklearn." + module)',
+             'RF_SOLVERS = ("native", "sklearn")'],
     }
     for path in paths:
         with open(path) as fh:
             src = fh.read()
-        if path in lazy:
-            assert src.count(lazy[path]) == 1, path
-            src = src.replace(lazy[path], "")
+        for allowed in lazy.get(path, ()):
+            assert src.count(allowed) == 1, (path, allowed)
+            src = src.replace(allowed, "")
         for word in ("import jax", "from jax", "sklearn", "orbax",
                      "mrgan_tpu."):
             assert word not in src, (path, word)

@@ -519,9 +519,11 @@ def test_select_fraction_labeled_matches_jax():
 def test_svm_and_rf_run_scikit_learn_where_installed():
     x, y, xt, yt = _baseline_data(n=30)
     for kernel in (0, 1):
-        assert baselines.learn_svm(x, y, xt, yt, kernel) == pytest.approx(
+        assert baselines.learn_svm(x, y, xt, yt, kernel,
+                                   solver="libsvm") == pytest.approx(
             jax_baselines.learn_svm(x, y, xt, yt, kernel))
-    assert baselines.learn_rf(x, y, xt, yt) == pytest.approx(
+    assert baselines.learn_rf(x, y, xt, yt,
+                              solver="sklearn") == pytest.approx(
         jax_baselines.learn_rf(x, y, xt, yt))
 
 

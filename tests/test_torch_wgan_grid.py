@@ -1,7 +1,8 @@
 """The port's variant grid CLI (mrgan_tpu_torch/cli/wgan_grid.py) vs the
 JAX package's (mrgan_tpu/cli/wgan_grid.py), on the CPU at 2 synthetic pokes
 an object: the same lines in the same order; where the algorithm is
-deterministic (scikit-learn's SVM and forest) the same numbers too."""
+deterministic (scikit-learn's SVM and forest, on the explicit scikit-learn
+routes) the same numbers too."""
 
 import contextlib
 import dataclasses
@@ -61,9 +62,9 @@ def _shape(line):
     return _NUMBER.sub("#", line)
 
 
-def _compare(argv, exact=False):
+def _compare(argv, exact=False, port_flags=()):
     want = _lines(jax_grid.main, argv)
-    got = _lines(wgan_grid.main, argv + ["--device", "cpu"])
+    got = _lines(wgan_grid.main, argv + ["--device", "cpu", *port_flags])
     assert [_shape(l) for l in got] == [_shape(l) for l in want], (got, want)
     assert got[-1].startswith("Total time:")
     if exact:
@@ -83,13 +84,20 @@ def test_kfold_lines_match_the_jax_cli(algorithm, one_epoch):
     assert lstm_cuda.fwd_launches == before  # the CPU runs the plain loop
 
 
+# the explicit scikit-learn routes (the defaults are native: the in-tree
+# SMO and forest, tests/test_torch_forest.py)
+SCIKIT_LEARN = ("--svm-solver", "libsvm", "--rf-solver", "sklearn")
+
+
 @pytest.mark.parametrize("algorithm", ["svm", "rf"])
 def test_scikit_learn_algorithms_print_the_jax_clis_numbers(algorithm):
-    _compare(["-t", "0", "-a", algorithm] + COMMON, exact=True)
+    _compare(["-t", "0", "-a", algorithm] + COMMON, exact=True,
+             port_flags=SCIKIT_LEARN)
 
 
 def test_object_protocols_print_the_jax_clis_numbers():
-    lines = _compare(["-t", "1", "2", "-a", "svm"] + COMMON, exact=True)
+    lines = _compare(["-t", "1", "2", "-a", "svm"] + COMMON, exact=True,
+                     port_flags=SCIKIT_LEARN)
     assert sum("Train objects per material:" in l for l in lines) == 3
     assert sum(l.split()[0].endswith(tuple("0123456789"))
                and "Test accuracy:" in l for l in lines) == 72
