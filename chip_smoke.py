@@ -95,6 +95,9 @@ Phases (any failure raises and the script exits non-zero):
     epochs, GAN 100), held to the record's seeds as one more draw of them
     and below chance on every fold (the two-seed verdict and the 0.1-below-
     chance verdict printed: the record itself misses the latter); the AE
+    trained: every fold's last-epoch reconstruction MSE below its glorot
+    draw's on the same rows (the reference's AE learns nothing of the raw
+    waveform, and an untrained AE passes the error bars); the AE
     step's and the GAN-on-encodings step's CUDA-event median, busy share and
     top operations, peak memory, updates/s, the 100-epoch AE cell's
     predicted time; ``cli.autoencoder.main`` at SMOKE_POKES pokes, 1 epoch.
@@ -1624,6 +1627,64 @@ def ae_reference():
     return {r["seed"]: np.asarray(r["result"]) for r in recs}
 
 
+def recorded_ae_steps(fn, watch_from):
+    """fn() with every ``autoencoder.ae_train_step`` recorded as device
+    tensors (no sync), each (F,) a step: "mse" the step's reconstruction
+    MSE, "zero" its rows' mean square (the MSE of an AE that outputs 0: the
+    rows are standardized). From step ``watch_from`` on also "untrained",
+    the MSE of the first step's (glorot) parameters on the same rows, and
+    "alive", each encoder unit's largest output under the new parameters
+    (F, units). Returns (result, record)."""
+    rec = {"mse": [], "zero": [], "untrained": [], "alive": None}
+    step = autoencoder.ae_train_step
+
+    def recorded(state, xb, cfg):
+        if not rec["mse"]:
+            rec["init"] = state["params"]  # the step makes new tensors
+        state, loss = step(state, xb, cfg)
+        rec["mse"].append(loss)
+        rec["zero"].append(torch.square(xb).mean(dim=(-2, -1)))
+        if len(rec["mse"]) > watch_from:
+            with torch.no_grad():
+                p0 = rec["init"]
+                rec["untrained"].append(torch.square(autoencoder.decode(
+                    p0, autoencoder.encode(p0, xb)) - xb).mean(dim=(-2, -1)))
+                top = autoencoder.encode(state["params"], xb).amax(dim=-2)
+                rec["alive"] = top if rec["alive"] is None else \
+                    torch.maximum(rec["alive"], top)
+        return state, loss
+
+    autoencoder.ae_train_step = recorded
+    try:
+        return fn(), rec
+    finally:
+        autoencoder.ae_train_step = step
+
+
+def ae_moved(rec, epochs, nb):
+    """The cell's autoencoder trained on the card: epochs x nb steps, and on
+    the last epoch's rows every fold's reconstruction MSE below its glorot
+    draw's on the same rows. The reference's AE learns nothing of the raw
+    waveform at these settings: its MSE settles at the zero predictor's in
+    the first epoch, below the untrained AE's by that AE's output power,
+    and many encoder units die (``tools/ae_trajectory.py``; PERF.md, phase
+    19's control). An AE whose update is dropped, or that diverges, fails
+    this; the cell's error bars cannot tell an untrained AE."""
+    assert len(rec["mse"]) == epochs * nb, (len(rec["mse"]), epochs, nb)
+    mse, zero = (torch.stack(rec[k]).cpu().numpy() for k in ("mse", "zero"))
+    untrained = torch.stack(rec["untrained"]).cpu().numpy().mean(axis=0)
+    last, last_zero = mse[-nb:].mean(axis=0), zero[-nb:].mean(axis=0)
+    dead = (rec["alive"] <= 0).sum(dim=-1).cpu().numpy()
+    print("phase 19: AE reconstruction MSE a fold: epoch 1 mean %s; epoch %d "
+          "mean %s, on the same rows the zero predictor's %s and the "
+          "untrained AE's %s; encoder units dead over epoch %d %s of %d" % (
+              np.round(mse[:nb].mean(axis=0), 4).tolist(), epochs,
+              np.round(last, 4).tolist(), np.round(last_zero, 4).tolist(),
+              np.round(untrained, 4).tolist(), epochs, dead.tolist(),
+              rec["alive"].shape[-1]))
+    assert (last < untrained).all(), (last, untrained)
+
+
 def ae_gan_phase(dev, pokes=100):
     """Phase 19: the AE-GAN cell at full width (raw modality 3, 7,200 x
     9,600, 6 folds stacked, 100 % labels, seed 0, AE 10 of 100 epochs, GAN
@@ -1632,9 +1693,10 @@ def ae_gan_phase(dev, pokes=100):
     the seed-0 record at the DP-parity bars, or the seed-0 / seed-1 spread
     where that is wider, the verdict is printed (the two recorded seeds
     differ by that bar on a fold: a third draw fails it about half the
-    time). Then the AE step and the GAN-on-encodings step timed and
-    profiled, and the CLI at SMOKE_POKES pokes an object. Returns the
-    cell's (errors, wall seconds)."""
+    time); the cell's AE trained (:func:`ae_moved`). Then the AE step and
+    the GAN-on-encodings step timed and profiled, and the CLI at
+    SMOKE_POKES pokes an object. Returns the cell's (errors, wall
+    seconds)."""
     x3, y3 = ae_cli.raw_contact_dataset(0, pokes)
     assert x3.shape == (72 * pokes, AUDIO_LEN), x3.shape
     ref = ae_reference()
@@ -1644,11 +1706,17 @@ def ae_gan_phase(dev, pokes=100):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    errs, dft, lstm_n = slice_driven(lambda: autoencoder.run_ae_gan_cell(
-        x3, y3, 100, ae_cfg=ae_cfg, gan_cfg=gan_cfg, seed=0, device=dev))
+    n_train = len(y3) - len(y3) // 6
+    bs, nb = autoencoder.ae_batches(n_train, ae_cfg)
+    (errs, dft, lstm_n), ae_rec = recorded_ae_steps(
+        lambda: slice_driven(lambda: autoencoder.run_ae_gan_cell(
+            x3, y3, 100, ae_cfg=ae_cfg, gan_cfg=gan_cfg, seed=0,
+            device=dev)), (AE_EPOCHS - 1) * nb)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
     assert dft == 0 and lstm_n == (0, 0), (dft, lstm_n)
+    ae_moved(ae_rec, AE_EPOCHS, nb)
+    del ae_rec
     two_seed_verdict(
         "phase 19: AE-GAN raw modality 3 (%d x %d), 100 %% labels, AE %d "
         "epochs, GAN %d epochs, seed 0 vs %s seed 0 (its seed-0 / seed-1 "
@@ -1669,8 +1737,6 @@ def ae_gan_phase(dev, pokes=100):
               "met" if errs.max() < LEARNED_BAR else "missed",
               "met" if record_max < LEARNED_BAR else "missed"))
     assert errs.max() < CHANCE_ERROR and record_max < CHANCE_ERROR, errs
-    n_train = len(y3) - len(y3) // 6
-    bs, nb = autoencoder.ae_batches(n_train, ae_cfg)
     ae_updates = 6 * AE_EPOCHS * nb
     gan_updates = 6 * AE_GAN_EPOCHS * (n_train // gan_cfg.batch_size)
     print("phase 19: cell wall %.3f s for %d AE updates (6 folds x %d epochs "

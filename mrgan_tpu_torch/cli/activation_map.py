@@ -9,9 +9,10 @@ Port of ``mrgan_tpu/cli/activation_map.py``: the same flags plus
     python -m mrgan_tpu_torch.cli.activation_map -m 2 --synthetic \\
         --synthetic-pokes 2 --epochs 1 --samples 4 --device cpu
 
-The fold is the JAX CLI's: fold 0 of ``stratified_splits(seed)``, prepared
-on the host by ``protocol.prepare_fold`` at 100 % labels, padded to a
-multiple of 128 as the JAX package's ``MlpConfig`` pads. The maps
+The fold is the JAX CLI's: fold 0 of ``stratified_splits(seed)`` at 100 %
+labels, its rows picked by ``protocol.fold_indices`` and scaled on the
+device (``gan.scaled_rows``), padded to a multiple of 128 as the JAX
+package's ``MlpConfig`` pads. The maps
 (``activation_maps.npy``, (samples, features)) and the inputs they explain
 (``activation_inputs.npy``) are always written to ``--out-dir``; the
 heatmap figure (``activation_maps.png``) only where matplotlib imports.
@@ -24,7 +25,7 @@ import numpy as np
 import torch
 
 from ..data import mreo
-from ..train import mlp, protocol
+from ..train import gan, mlp, protocol
 from ..utils import device as device_lib
 from ..utils import rng as rng_util
 from ..variants import activation_maps
@@ -88,25 +89,26 @@ def make_maps(argv=None):
         synthetic_seed=args.seed if args.synthetic else None,
         synthetic_kwargs={"pokes_per_object": args.synthetic_pokes},
         device=device)
-    x, y = x.cpu().numpy(), y.cpu().numpy()
-    rng = np.random.RandomState(args.seed)
-    (tr, te), *_ = protocol.stratified_splits(y, n_splits=6, seed=args.seed)
-    fold = protocol.prepare_fold(x[tr], y[tr], x[te], y[te], 100, None, 6,
-                                 rng)
-
     cfg = mlp.MlpConfig(epochs=args.epochs, pad_multiple=128)
-    data, valid_dim = protocol.upload_stacked(
-        protocol.stack_folds([fold]), device, cfg.pad_multiple)
+    ds = protocol.DeviceDataset(x, y, cfg.pad_multiple, cfg.pad_min,
+                                device=device)
+    valid_dim = ds.valid_dim
+    rng = np.random.RandomState(args.seed)
+    (tr, te), *_ = protocol.stratified_splits(ds.y_host, n_splits=6,
+                                              seed=args.seed)
+    lab, _, train, test = (
+        gan.index_tensor(a[None], device) for a in protocol.fold_indices(
+            ds.y_host, tr, te, 100, None, cfg.num_classes, rng))
+    x_lab, x_test = gan.scaled_rows(ds.X, train, lab, test)
     generator = rng_util.make_generator(args.seed, device)
-    err, aux = mlp.train_folds(generator, data["x_labeled"],
-                               data["y_labeled"], data["x_test"],
-                               data["y_test"], valid_dim=valid_dim, cfg=cfg)
+    err, aux = mlp.train_folds(generator, x_lab, ds.y[lab], x_test,
+                               ds.y[test], valid_dim=valid_dim, cfg=cfg)
     print("Test error:", float(err[0]))
     params = activation_maps.fold_slice(aux["params"])
 
-    x_test = data["x_test"][0, : args.samples]
+    x_test = x_test[0, : args.samples]
     y_target = torch.eye(cfg.num_classes, device=device)[
-        data["y_test"][0, : args.samples]]
+        ds.y[test][0, : args.samples]]
     cams = activation_maps.mlp_saliency(params, x_test, y_target)
     cams = cams[:, :valid_dim].cpu().numpy()
     inputs = x_test[:, :valid_dim].cpu().numpy()

@@ -16,9 +16,9 @@ seed 54321 (a copy of scikit-learn's ``StratifiedKFold``); each fold is
 scaled on the host (``variants.baselines.pca_scale``) and trains on the
 device. ``-a svm`` (the linear SVC of every grid) solves natively by
 default: the Gram matrices on the device, the dual by the in-tree SMO;
-``-a rf`` fits the in-tree forest (``train.forest``). The scikit-learn
-routes of ``--svm-solver`` / ``--rf-solver`` run its estimators instead,
-and raise where it is not installed.
+``-a rf`` fits the in-tree forest (``train.forest``), which grows
+scikit-learn's trees. ``--svm-solver libsvm`` runs scikit-learn's SVC
+instead, and raises where it is not installed.
 """
 
 import argparse
@@ -153,11 +153,11 @@ def algorithm_config(algorithm, epochs=None):
 
 
 def run_fold(algorithm, x_tr, y_tr, x_te, y_te, fraction, pca, scale, kernel,
-             *, device, cfg=None, svm_solver="native", rf_solver="native"):
+             *, device, cfg=None, svm_solver="native"):
     """One fold's accuracy: host scaling, the labeled fraction drawn with
     the reference's seed 54321, training on ``device``. ``cfg`` overrides
-    :func:`algorithm_config`'s; ``svm_solver`` / ``rf_solver`` pick the
-    routes of -a svm / rf (``baselines.learn_svm`` / ``learn_rf``)."""
+    :func:`algorithm_config`'s; ``svm_solver`` picks the route of -a svm
+    (``baselines.learn_svm``)."""
     x_tr, x_te = baselines.pca_scale(x_tr, x_te, pca=pca, scale=scale)
     y_tr = np.asarray(y_tr, np.int32)
     rng = np.random.RandomState(54321)  # the reference's enforced seed
@@ -194,8 +194,7 @@ def run_fold(algorithm, x_tr, y_tr, x_te, y_te, fraction, pca, scale, kernel,
                                    kernel=kernel or 0, solver=svm_solver,
                                    device=device)
     if algorithm == "rf":
-        return baselines.learn_rf(x_lab, y_lab, x_te, y_te,
-                                  solver=rf_solver)
+        return baselines.learn_rf(x_lab, y_lab, x_te, y_te)
     raise ValueError(algorithm)
 
 
@@ -245,10 +244,6 @@ def build_parser():
                         help="-a svm: native (default; the Gram matrices on "
                              "the device, the in-tree SMO) or libsvm "
                              "(scikit-learn's SVC)")
-    parser.add_argument("--rf-solver", choices=baselines.RF_SOLVERS,
-                        default="native",
-                        help="-a rf: native (default; the in-tree forest) or "
-                             "scikit-learn's RandomForestClassifier")
     parser.add_argument("--device", default="cuda",
                         help="Torch device to train on: cuda (default), "
                              "cuda:N or cpu; cuda without a card raises")
@@ -268,7 +263,7 @@ def main(argv=None):
     def fold(x_tr, y_tr, x_te, y_te, fraction, pca, scale, kernel):
         return run_fold(algorithm, x_tr, y_tr, x_te, y_te, fraction, pca,
                         scale, kernel, device=device,
-                        svm_solver=args.svm_solver, rf_solver=args.rf_solver)
+                        svm_solver=args.svm_solver)
 
     load_kw = dict(
         modalities=2,

@@ -128,7 +128,9 @@ def stratified_splits(y, n_splits=6, seed=None):
 
 
 # --------------------------------------------------------------------------
-# The host fold API (prepared folds as numpy arrays)
+# The host fold API (prepared folds as numpy arrays): the reference's
+# function API for callers that bring their own folds. The port's cells
+# prepare their folds on the device instead (fold_indices + gan.scaled_rows).
 # --------------------------------------------------------------------------
 
 def select_labeled(x_train, y_train, num_per_class, num_classes, rng):
@@ -203,22 +205,6 @@ def loo_splits(objects):
         yield name, x_train, y_train, x_test, y_test
 
 
-def upload_stacked(stacked, device, pad_multiple=1, pad_min=0):
-    """A :func:`stack_folds` dict as tensors on ``device``: features padded
-    to ``pad_multiple`` / ``pad_min``, labels int64. Returns (the five
-    tensors by key, the unpadded feature width)."""
-    out = {}
-    for k in FOLD_KEYS:
-        a = np.asarray(stacked[k])
-        if k.startswith("y"):
-            out[k] = torch.as_tensor(a.astype(np.int64), device=device)
-        else:
-            out[k], valid_dim = gan.pad_features(
-                torch.as_tensor(a, dtype=torch.float32, device=device),
-                pad_multiple, pad_min)
-    return out, valid_dim
-
-
 def run_prepared_folds(folds, cfg, rng, *, device):
     """Pad, stack and train a list of prepared folds in one launch of the
     fold-stacked trainer on ``device``; the trainer's generator is seeded
@@ -226,8 +212,15 @@ def run_prepared_folds(folds, cfg, rng, *, device):
     the (F,) test errors as numpy."""
     device = device_lib.resolve(device)
     stacked = stack_folds(folds)
-    data, valid_dim = upload_stacked(stacked, device, cfg.pad_multiple,
-                                     cfg.pad_min)
+    data = {}
+    for k in FOLD_KEYS:
+        if k.startswith("y"):
+            data[k] = torch.as_tensor(stacked[k].astype(np.int64),
+                                      device=device)
+        else:
+            data[k], valid_dim = gan.pad_features(
+                torch.as_tensor(stacked[k], dtype=torch.float32,
+                                device=device), cfg.pad_multiple, cfg.pad_min)
     generator = rng_util.make_generator(rng.randint(2**31 - 1), device)
     errors, _aux = gan.train_folds(generator, n_train=stacked["n_train"],
                                    valid_dim=valid_dim, cfg=cfg, **data)

@@ -151,22 +151,30 @@ def run_ae_gan_cell(x, y, percentlabeled, ae_cfg=AeConfig(),
                     gan_cfg=gan_mod.GanConfig(), seed=0, n_splits=6, *,
                     device):
     """Stratified cell with AE pretraining (mr_gan_autoencoder.py:296-313),
-    every fold in one launch on ``device``: the folds are prepared on the
-    host (``protocol.prepare_fold``) from ``RandomState(seed)`` in the JAX
-    package's order, then the trainer's generator is seeded from one more
-    draw. Returns per-fold test ERRORS (the reference prints accuracies)."""
-    device = device_lib.resolve(device)
-    x, y = np.asarray(x, np.float32), np.asarray(y)
+    every fold in one launch on ``device``. The rows are uploaded once
+    (``protocol.DeviceDataset``); each fold's labeled rows are picked by
+    ``protocol.fold_indices`` from ``RandomState(seed)`` in the JAX
+    package's order, and its scaler is fit on its train rows on the device
+    (``gan.scaled_rows``). The pool is the whole scaled train split in split
+    order, as the JAX package's ``prepare_fold`` leaves it. The trainer's
+    generator is seeded from one more draw. Returns per-fold test ERRORS
+    (the reference prints accuracies)."""
+    ds = protocol.DeviceDataset(x, y, device=device_lib.resolve(device))
     rng = np.random.RandomState(seed)
-    splits = protocol.stratified_splits(y, n_splits=n_splits, seed=seed)
-    folds = [protocol.prepare_fold(x[tr], y[tr], x[te], y[te],
-                                   percentlabeled, None, gan_cfg.num_classes,
-                                   rng)
-             for tr, te in splits]
-    stacked = protocol.stack_folds(folds)
-    del folds
-    data, _ = protocol.upload_stacked(stacked, device)
-    generator = rng_util.make_generator(rng.randint(2**31 - 1), device)
-    errors, _ = train_folds(generator, n_train=stacked["n_train"],
-                            ae_cfg=ae_cfg, gan_cfg=gan_cfg, **data)
+    splits = protocol.stratified_splits(ds.y_host, n_splits=n_splits,
+                                        seed=seed)
+    idx = [protocol.fold_indices(ds.y_host, tr, te, percentlabeled, None,
+                                 gan_cfg.num_classes, rng)
+           for tr, te in splits]
+    lab, _, train, test = (gan_mod.index_tensor(np.stack([f[i] for f in idx]),
+                                                ds.X.device)
+                           for i in range(4))
+    y_labeled, y_test = ds.y[lab], ds.y[test]
+    x_labeled, pool, x_test = gan_mod.scaled_rows(ds.X, train, lab, train,
+                                                  test)
+    del ds  # the scaled folds are all the cell reads from here on
+    generator = rng_util.make_generator(rng.randint(2**31 - 1), pool.device)
+    errors, _ = train_folds(generator, x_labeled, y_labeled, pool, x_test,
+                            y_test, train.shape[1], ae_cfg=ae_cfg,
+                            gan_cfg=gan_cfg)
     return errors

@@ -14,8 +14,7 @@ Port of ``mrgan_tpu/variants/baselines.py``:
          SMO (``train.native_svm``). ``solver="libsvm"`` and the other
          kernels run scikit-learn, and raise where it is not installed;
 - 'rf'   ``RandomForestClassifier(n_estimators=10, random_state=seed)``
-         (:215-221): natively ``train.forest`` (the default), or
-         scikit-learn's own, which then must be installed.
+         (:215-221), grown draw for draw by ``train.forest`` on the host.
 
 All return ACCURACY, the variant's convention. The trainers take one fold
 (a leading fold axis of 1), draw each epoch's permutation and dropout masks
@@ -280,7 +279,6 @@ def _scikit_learn(module, what):
 
 
 SVM_SOLVERS = ("native", "libsvm")
-RF_SOLVERS = ("native", "sklearn")
 NATIVE_SVM_KERNELS = (1,)
 
 
@@ -330,20 +328,14 @@ def learn_svm(x_lab, y_lab, x_test, y_test, kernel=0, solver="native",
 
 
 def learn_rf(x_lab, y_lab, x_test, y_test, n_estimators=10, seed=0,
-             solver="native", timings=None):
-    """The test accuracy of a random forest of ``n_estimators`` trees:
-    ``train.forest`` on the host (native), or scikit-learn's. ``timings``
+             timings=None):
+    """The test accuracy of a random forest of ``n_estimators`` trees,
+    grown on the host by ``train.forest`` as scikit-learn's
+    ``RandomForestClassifier(random_state=seed)`` grows them. ``timings``
     receives the fit's seconds ("fit_s")."""
-    _check(solver, RF_SOLVERS, "rf")
     t0 = time.perf_counter()
-    if solver == "native":
-        model = forest.RandomForest(n_estimators=n_estimators,
-                                    random_state=seed)
-    else:
-        ensemble = _scikit_learn("ensemble", "-a rf (%s)" % solver)
-        model = ensemble.RandomForestClassifier(n_estimators=n_estimators,
-                                                random_state=seed)
-    model.fit(x_lab, y_lab)
+    model = forest.RandomForest(n_estimators=n_estimators,
+                                random_state=seed).fit(x_lab, y_lab)
     if timings is not None:
         timings["fit_s"] = time.perf_counter() - t0
     return float(model.score(x_test, y_test))

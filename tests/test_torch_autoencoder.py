@@ -16,10 +16,13 @@ import pytest
 import torch
 
 from mrgan_tpu.cli import autoencoder as jax_cli
+from mrgan_tpu.models import nets as jax_nets
 from mrgan_tpu.train import gan as jax_gan
 from mrgan_tpu.train import optim as jax_optim
+from mrgan_tpu.train import protocol as jax_protocol
 from mrgan_tpu.variants import autoencoder as jax_ae
 from mrgan_tpu_torch.cli import autoencoder as cli
+from mrgan_tpu_torch.models import nets
 from mrgan_tpu_torch.train import gan
 from mrgan_tpu_torch.utils import rng as rng_util
 from mrgan_tpu_torch.utils import tree
@@ -28,6 +31,10 @@ from mrgan_tpu_torch.variants import autoencoder
 from test_torch_train import _jax_draws, _outliers
 
 TOL = 1e-5   # parameters, Adam moments and encodings after K steps
+# the AE-GAN fold's float32 test logits vs the JAX package's: 3.3e-4
+# measured (largest logit 0.196); the GAN trainer's own test holds 1e-4
+# where no ReLU crosses its kink (tests/test_torch_train.py)
+DISC_F32_LOGITS = 1e-3
 
 
 @pytest.fixture(autouse=True)
@@ -160,9 +167,12 @@ def test_ae_gan_fold_matches_the_jax_packages(monkeypatch):
     autoencoder._train_one (the AE's initial parameters and permutations,
     the GAN's parameters, batches and noise): the same test error; the
     encodings within 1e-5 of the JAX autoencoder's; the JAX GAN run on the
-    port's encodings reads the same error; and the port's GAN steps in
-    float64 land on its final discriminator within the GAN trainer's
-    tolerances (tests/test_torch_train.py)."""
+    port's encodings reads the same error; the port's GAN steps replayed in
+    float64 land on the JAX package's final discriminator and generator
+    with no entry outside the GAN trainer's tolerance; the fold's float32
+    parameters are that replay's float32 twin bit for bit, and its final
+    discriminator is held to the JAX package's at the bounds stated
+    below."""
     d, n_lab, n_train, n_test = 40, 48, 120, 30
     x_lab, y_lab = _rows(n_lab, d, 4)
     pool, _ = _rows(n_train, d, 5)
@@ -218,38 +228,99 @@ def test_ae_gan_fold_matches_the_jax_packages(monkeypatch):
         jax_gan._train_one, n_train=n_train, valid_dim=16, cfg=jcfg))(
             k_gan, enc[0], args[1], enc[1], enc[2], args[4])
     assert errs[0] == pytest.approx(float(err))
-    # the GAN's steps again, in float64: the port's algorithm, free of its
-    # float32 rounding, lands on the JAX package's float32 discriminator
-    disc = _gan_steps_float64(gan_params, steps, enc, y_lab, cfg)["disc"]
-    n_out = sum(_outliers(disc[name][leaf][0], w)
-                for name, leaves in _np(aux["params"]["disc"]).items()
+    want = _np(aux["params"])
+    # The GAN's steps replayed in float64: the port's algorithm, free of
+    # its float32 rounding, lands on the JAX package's final discriminator
+    # and generator with no entry outside the GAN trainer's tolerance
+    # (atol 1e-5 / rtol 1e-4, tests/test_torch_train.py).
+    f64 = _gan_steps(gan_params, steps, enc, y_lab, cfg, torch.float64)
+    n_out = sum(_outliers(f64[net][name][leaf][0], w)
+                for net in ("disc", "gen")
+                for name, leaves in want[net].items()
                 for leaf, w in leaves.items())
-    print("final discriminator outside atol 1e-5 / rtol 1e-4: %d" % n_out)
+    assert n_out == 0
+    # The fold's own float32 run is that algorithm: the same steps replayed
+    # in float32 give its final parameters bit for bit.
+    f32 = _gan_steps(gan_params, steps, enc, y_lab, cfg, torch.float32)
+    port = gan.params_to_jax(got["params"])
+    for net in ("disc", "gen"):
+        for name, leaves in port[net].items():
+            for leaf, p in leaves.items():
+                np.testing.assert_array_equal(p, f32[net][name][leaf])
+    # In float32 the port departs from the JAX package's float32 run by up
+    # to 1.3e-3 on these encodings (ROADMAP.md, section C): at the first
+    # generator update one ReLU of the discriminator's d2 layer, 2.4e-7
+    # from its kink in float64, falls on the other side under the port's
+    # rounding, and an Adam step of that size (about 2 lr) follows. Held:
+    # every final discriminator entry within 2e-3 of the JAX package's,
+    # and its test logits within DISC_F32_LOGITS.
+    for name, leaves in want["disc"].items():
+        for leaf, w in leaves.items():
+            np.testing.assert_allclose(port["disc"][name][leaf][0], w,
+                                       rtol=0, atol=2e-3,
+                                       err_msg="%s %s" % (name, leaf))
+    want_logits, _ = jax_nets.discriminator_apply(want["disc"], enc[2])
+    with torch.no_grad():
+        logits, _ = nets.discriminator_apply(got["params"]["disc"],
+                                             t(enc[2])[None])
+    np.testing.assert_allclose(logits[0].numpy(), np.asarray(want_logits),
+                               rtol=0, atol=DISC_F32_LOGITS)
 
 
-def _gan_steps_float64(params, steps, enc, y_lab, cfg):
-    """gan.train_step over the JAX draws in float64 (a rounding yardstick:
-    on these encodings the disc's first Adam step, m / sqrt(v) = sign(g),
-    turns float32 rounding of near-zero gradient entries into steps of up
-    to lr, in either package). Returns the final {"gen", "disc"} as
-    numpy."""
-    def f64(a):
-        return a.to(torch.float64)
+def _gan_steps(params, steps, enc, y_lab, cfg, dtype):
+    """gan.train_step over the JAX draws in ``dtype`` (float64 is a
+    rounding yardstick). Returns the final {"gen", "disc"} as numpy."""
+    def cast(a):
+        return a.to(dtype)
 
     state = gan.init_state(gan.params_from_jax(params), cfg)
-    state = {k: (tree.tree_map(f64, v) if k in ("gen", "disc") else
-                 {"m": tree.tree_map(f64, v["m"]),
-                  "v": tree.tree_map(f64, v["v"]), "t": v["t"]})
+    state = {k: (tree.tree_map(cast, v) if k in ("gen", "disc") else
+                 {"m": tree.tree_map(cast, v["m"]),
+                  "v": tree.tree_map(cast, v["v"]), "t": v["t"]})
              for k, v in state.items()}
     t = torch.tensor
-    data = {"x_labeled": f64(t(enc[0]))[None], "y_labeled": t(y_lab)[None],
-            "pool": f64(t(enc[1]))[None]}
+    data = {"x_labeled": cast(t(enc[0]))[None], "y_labeled": t(y_lab)[None],
+            "pool": cast(t(enc[1]))[None]}
     for li, ui, u2i, rand in steps:
-        rand = {k: ([f64(t(a))[None] for a in v] if isinstance(v, list)
-                    else f64(t(v))[None]) for k, v in rand.items()}
+        rand = {k: ([cast(t(a))[None] for a in v] if isinstance(v, list)
+                    else cast(t(v))[None]) for k, v in rand.items()}
         state, _ = gan.train_step(state, data, t(li)[None], t(ui)[None],
                                   t(u2i)[None], rand, cfg=cfg)
     return gan.params_to_jax({"gen": state["gen"], "disc": state["disc"]})
+
+
+def test_run_ae_gan_cell_folds_equal_the_jax_packages_host_prep(monkeypatch):
+    """The cell's device folds (fold_indices + the device scaler) hold the
+    rows that the JAX package's run_ae_gan_cell prepares on the host
+    (prepare_fold, stack_folds) from the same numpy stream, scaled alike:
+    labels exactly, features within 1e-5."""
+    rng = np.random.RandomState(9)
+    x = (rng.randn(90, 7) * 4 + 2).astype(np.float32)
+    x[:, 3] = 5.0  # a constant column passes through
+    y = np.arange(90) % 6
+    seen = {}
+
+    def record(generator, x_labeled, y_labeled, pool, x_test, y_test,
+               n_train, **kw):
+        seen.update(x_labeled=x_labeled, y_labeled=y_labeled, pool=pool,
+                    x_test=x_test, y_test=y_test, n_train=n_train)
+        return np.zeros(len(pool)), {}
+
+    monkeypatch.setattr(autoencoder, "train_folds", record)
+    for percent in (0.5, 100):
+        autoencoder.run_ae_gan_cell(x, y, percent, seed=4, n_splits=3,
+                                    device="cpu")
+        jrng = np.random.RandomState(4)
+        want = jax_protocol.stack_folds([
+            jax_protocol.prepare_fold(x[tr], y[tr], x[te], y[te], percent,
+                                      None, 6, jrng)
+            for tr, te in jax_protocol.stratified_splits(y, 3, seed=4)])
+        assert seen["n_train"] == want["n_train"] == 60
+        for k in ("y_labeled", "y_test"):
+            np.testing.assert_array_equal(seen[k].numpy(), want[k])
+        for k in ("x_labeled", "pool", "x_test"):
+            np.testing.assert_allclose(seen[k].numpy(), want[k], rtol=1e-5,
+                                       atol=1e-5, err_msg=k)
 
 
 def test_run_ae_gan_cell_learns_and_refuses_a_missing_card():

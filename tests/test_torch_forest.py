@@ -196,8 +196,6 @@ def test_routes_are_explicit():
         baselines.learn_svm(x, y, xt, yt, kernel=1)
     with pytest.raises(ValueError, match="solver"):
         baselines.learn_svm(x, y, xt, yt, kernel=1, solver="smo")
-    with pytest.raises(ValueError, match="solver"):
-        baselines.learn_rf(x, y, xt, yt, solver="native2")
     timings = {}
     acc = baselines.learn_rf(x, y, xt, yt, timings=timings)
     assert acc == RandomForestClassifier(10, random_state=0).fit(
@@ -215,8 +213,6 @@ def test_scikit_learn_routes_raise_where_it_is_missing(monkeypatch):
         baselines.learn_svm(x, y, xt, yt, kernel=1, solver="libsvm")
     with pytest.raises(RuntimeError, match="not installed"):
         baselines.learn_svm(x, y, xt, yt, kernel=0, device="cpu")
-    with pytest.raises(RuntimeError, match="not installed"):
-        baselines.learn_rf(x, y, xt, yt, solver="sklearn")
     # the native routes do not need it
     assert 0 <= baselines.learn_svm(x, y, xt, yt, kernel=1,
                                     device="cpu") <= 1

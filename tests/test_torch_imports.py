@@ -62,15 +62,13 @@ def test_port_sources_name_no_jax():
                   if f.endswith((".py", ".cu"))]
     # the places scikit-learn is named: the lazy imports of the
     # --svm-solver libsvm route and of the variant zoo's scikit-learn
-    # estimators (-a svm / rf, pca > 0), and the name of the --rf-solver
-    # route that reaches them; the child above proves importing the modules
-    # does not reach them
+    # estimators (-a svm, pca > 0); the child above proves importing the
+    # modules does not reach them
     lazy = {
         os.path.join(ROOT, "mrgan_tpu_torch", "train", "svm.py"):
             ["from sklearn.svm import SVC"],
         os.path.join(ROOT, "mrgan_tpu_torch", "variants", "baselines.py"):
-            ['importlib.import_module("sklearn." + module)',
-             'RF_SOLVERS = ("native", "sklearn")'],
+            ['importlib.import_module("sklearn." + module)'],
     }
     for path in paths:
         with open(path) as fh:

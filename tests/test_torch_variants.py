@@ -522,8 +522,9 @@ def test_svm_and_rf_run_scikit_learn_where_installed():
         assert baselines.learn_svm(x, y, xt, yt, kernel,
                                    solver="libsvm") == pytest.approx(
             jax_baselines.learn_svm(x, y, xt, yt, kernel))
-    assert baselines.learn_rf(x, y, xt, yt,
-                              solver="sklearn") == pytest.approx(
+    # the forest has one route, the in-tree one, which grows
+    # scikit-learn's trees (tests/test_torch_forest.py)
+    assert baselines.learn_rf(x, y, xt, yt) == pytest.approx(
         jax_baselines.learn_rf(x, y, xt, yt))
 
 

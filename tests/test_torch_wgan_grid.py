@@ -84,20 +84,22 @@ def test_kfold_lines_match_the_jax_cli(algorithm, one_epoch):
     assert lstm_cuda.fwd_launches == before  # the CPU runs the plain loop
 
 
-# the explicit scikit-learn routes (the defaults are native: the in-tree
-# SMO and forest, tests/test_torch_forest.py)
-SCIKIT_LEARN = ("--svm-solver", "libsvm", "--rf-solver", "sklearn")
+# -a svm on the explicit scikit-learn route (the default is the in-tree
+# SMO, tests/test_torch_forest.py); -a rf on its only route, the in-tree
+# forest, which grows scikit-learn's trees
+LIBSVM = ("--svm-solver", "libsvm")
+PORT_FLAGS = {"svm": LIBSVM, "rf": ()}
 
 
 @pytest.mark.parametrize("algorithm", ["svm", "rf"])
 def test_scikit_learn_algorithms_print_the_jax_clis_numbers(algorithm):
     _compare(["-t", "0", "-a", algorithm] + COMMON, exact=True,
-             port_flags=SCIKIT_LEARN)
+             port_flags=PORT_FLAGS[algorithm])
 
 
 def test_object_protocols_print_the_jax_clis_numbers():
     lines = _compare(["-t", "1", "2", "-a", "svm"] + COMMON, exact=True,
-                     port_flags=SCIKIT_LEARN)
+                     port_flags=LIBSVM)
     assert sum("Train objects per material:" in l for l in lines) == 3
     assert sum(l.split()[0].endswith(tuple("0123456789"))
                and "Test accuracy:" in l for l in lines) == 72
