@@ -119,10 +119,31 @@ Phases (any failure raises and the script exits non-zero):
     4 pokes) through ``cli.preprocess.main`` on the card, configs 0 and 7,
     every array within 1e-5 of its range of a ``device="cpu"`` run, the
     output read back by ``mreo.load_features``.
+24. The mel kernel at precision "high" (bf16x3, ``MRGAN_MEL_PRECISION=high``)
+    against its plain version: every variant the wrapper can pick at phase
+    3's shapes, power within rtol 2e-4 / atol 2e-3 of the plain bf16x3
+    version of the kernel's function (its row centring on the rows' means
+    rounded to integers written out, which moves the bf16 split's rounding)
+    and bitwise equal over two launches,
+    log-mel within 0.02 dB of the plain bf16x3 version without the centring
+    (the Pallas kernel's function); the golden fixtures through
+    ``frontend_logmel`` within 0.1 dB; ``load_features`` at modality 5 (72
+    launches) within 0.1 dB of phase 6's build; times at F = 19, 114, 1,368
+    and 48,128 beside the HIGHEST kernel, the plain bf16x3 path, the cuFFT
+    route, the bound and the bf16 algorithm bound.
+25. The live collection entry point: ``cli.collect.main`` on the card with
+    ``--classifier`` on phase 9's checkpoint, 6 pokes at timescale 20 over
+    the firmware simulators (built with g++ at the start, beside the
+    kernels): a prediction for every poke; the saved raw pickle classified
+    again offline gives the same predictions and logits within 1e-4; the
+    same pokes under ``MRGAN_MEL_PRECISION=high`` launch the HIGH kernel once
+    a poke, their logits within the classifier's Lipschitz bound of their
+    log-mel gap from the HIGHEST ones (that gap within 0.1 dB); the
+    per-poke classification latency from CUDA events and the wall time.
 
 The kernel counts are set to 0 just before each path is driven (phase 4,
 then phases 6-7, phase 9's request, each path of phases 12-15, 17-18 and
-19-23) and read just after; the JSON line's ``launches`` is their sum.
+19-25) and read just after; the JSON line's ``launches`` is their sum.
 Phases 19, 20, 22 and 23 launch neither kernel, and check that they do
 not. Launches made to compare a kernel with its plain version or to time
 it are not counted.
@@ -136,6 +157,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import pickle
 import re
 import statistics
@@ -149,8 +171,10 @@ import numpy as np
 import torch
 
 from mrgan_tpu_torch import MATERIALS
+from mrgan_tpu_torch.acquisition import serialdev
 from mrgan_tpu_torch.cli import activation_map as am_cli
 from mrgan_tpu_torch.cli import autoencoder as ae_cli
+from mrgan_tpu_torch.cli import collect as collect_cli
 from mrgan_tpu_torch.cli import preprocess as prep_cli
 from mrgan_tpu_torch.cli import tables, wgan_grid
 from mrgan_tpu_torch.data import mreo, preprocess, py2pickle, synthetic
@@ -186,9 +210,11 @@ SVM_FOLD_DELTA = 0.03                 # tests/test_native_svm.py:93
 PROFILE_STEPS = 50
 C_TIMES = (0.05, 0.1, 0.3, 0.5, 0.7, 1.0)  # Table 5's, less phase 6's 0.2 s
 SMOKE_POKES = 10
-# H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): TF32 on the tensor
-# cores, float32 on the CUDA cores, HBM3 bytes
-TF32_PEAK, FP32_PEAK, HBM_BYTES_S = 495e12, 67e12, 3.35e12
+# H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): TF32 and bf16 on
+# the tensor cores, float32 on the CUDA cores, HBM3 bytes
+TF32_PEAK, BF16_PEAK, FP32_PEAK, HBM_BYTES_S = 495e12, 989e12, 67e12, 3.35e12
+HIGH_DB_ATOL = 0.1     # tests/test_mel_pallas.py:45, the Pallas kernel's HIGH
+SIMS = ("thermal_sim", "contactmic_sim")
 
 
 def gpu_line():
@@ -598,7 +624,8 @@ def full_cell(ds, epochs=100):
 
 def fitted_classifier(dev, x, y, synth):
     """Phase 9: fit_classifier -> save -> load -> classify_pokes on the card.
-    Returns the (DFT, bin-group sum) launches of the request."""
+    Returns the (DFT, bin-group sum) launches of the request and the
+    checkpoint's path."""
     rows = torch.arange(0, len(x), 12, device=dev)
     clf = fit_classifier(x[rows], y[rows], modality=5,
                          cfg=gan.GanConfig(epochs=2), seed=0, ft_time=FT_TIME,
@@ -616,7 +643,7 @@ def fitted_classifier(dev, x, y, synth):
           "reloaded; 6 pokes (one per material %s) -> %s; %d kernel launch"
           % (len(rows), Path(path).relative_to(ROOT), list(MATERIALS), names,
              counted[0]))
-    return counted
+    return counted, path
 
 
 def time_steps(step, warmup=10, runs=60):
@@ -2093,6 +2120,325 @@ def preprocess_phase(dev):
                                        PREP_RTOL, shapes, wall, wall_cpu))
 
 
+# -- this slice: precision "high" and the live collection entry point -------
+
+@contextlib.contextmanager
+def mel_precision(name):
+    """MRGAN_MEL_PRECISION set to ``name`` inside the block, as a user sets
+    it; restored after."""
+    old = os.environ.get("MRGAN_MEL_PRECISION")
+    os.environ["MRGAN_MEL_PRECISION"] = name
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["MRGAN_MEL_PRECISION"]
+        else:
+            os.environ["MRGAN_MEL_PRECISION"] = old
+
+
+def high_counts():
+    return mel_cuda.launches, mel_cuda.high_launches, mel_cuda.reduce_launches
+
+
+def high_variants(dev, windows, sms):
+    """Phase 24a: every (tile, groups) variant at precision "high", held to
+    the plain bf16x3 version of the kernel's function (the rows' centring,
+    on rounded centres, written out) at the mel power bars, twice, bitwise
+    equal; log-mel
+    within 0.02 dB of the plain bf16x3 version without it. Returns (variants
+    checked, the largest log-mel dB error)."""
+    checked, worst_db = 0, 0.0
+    for n, audio_len in VARIANT_SHAPES:
+        padded, tn, frames = framed_input(dev, windows, n, audio_len)
+        f = n * tn
+        center = mel_cuda.row_centers(padded, "high").repeat_interleave(tn)
+        want = mel_cuda.mel_power_reference(frames, precision="high",
+                                            center=center)
+        plain = mel_cuda.mel_power_reference(frames, precision="high")
+        plain_db = mel.db_scale(plain.reshape(n, tn, 128))
+        truth = mel_power_f64(frames)
+        for layout in mel_cuda.variants(f, sms):
+            before = high_counts()
+            run = lambda: mel_cuda._launch(  # noqa: E731
+                padded, padded.shape[1], tn, HOP, f, 48000, N_FFT, 128,
+                precision="high", layout=layout)
+            got, again = run(), run()
+            torch.cuda.synchronize()
+            assert tuple(a - b for a, b in zip(high_counts(), before)) == (
+                0, 2, 2 * (layout[1] > 1)), layout
+            name = "high F=%d %s" % (f, mel_cuda.describe(layout, f))
+            err = check_close(name, got, want, POWER_RTOL, POWER_ATOL)
+            assert torch.equal(got, again), name + ": repeat launch differs"
+            db_err = check_close(name + " log-mel", mel.db_scale(
+                got.reshape(n, tn, 128)), plain_db, 0, DB_ATOL)
+            worst_db = max(worst_db, db_err)
+            rel = [((x.double() - truth).abs() / truth.abs().clamp(
+                min=1e-30)).max().item() for x in (got, plain)]
+            print("variant %s%s: max_abs_err=%r (rtol %g, atol %g) vs the "
+                  "centred plain bf16x3, repeat bitwise equal; log-mel vs "
+                  "plain bf16x3 %r dB (atol %g); max rel err vs float64: "
+                  "kernel %r, plain bf16x3 %r" % (
+                      name, " [picked]" if layout == mel_cuda._layout(f, sms)
+                      else "", err, POWER_RTOL, POWER_ATOL, db_err, DB_ATOL,
+                      rel[0], rel[1]))
+            checked += 1
+    return checked, worst_db
+
+
+def high_golden(dev):
+    """Phase 24b: the golden librosa-0.5.1 fixtures through frontend_logmel
+    under MRGAN_MEL_PRECISION=high, one HIGH launch each, within 0.1 dB."""
+    worst = 0.0
+    names = sorted(p.name[3:-4] for p in FIXDIR.glob("in_*.npy"))
+    assert len(names) >= 6, names
+    with mel_precision("high"):
+        for name in names:
+            x = torch.from_numpy(np.load(FIXDIR / ("in_%s.npy" % name))[None]
+                                 .astype(np.float32)).to(dev)
+            want = torch.from_numpy(np.load(FIXDIR / ("logmel_%s.npy" % name))
+                                    .astype(np.float32)).to(dev)
+            before = high_counts()
+            got = mel.frontend_logmel(x, flatten=False)[0]
+            after = high_counts()
+            assert (after[0] - before[0], after[1] - before[1]) == (0, 1), (
+                "fixture did not take the HIGH kernel")
+            worst = max(worst, check_close("high golden " + name, got, want,
+                                           0, HIGH_DB_ATOL))
+    print("phase 24: golden fixtures x%d via frontend_logmel under "
+          "MRGAN_MEL_PRECISION=high: max_abs_err_db=%r (atol %g dB; the JAX "
+          "package reports ~1.5e-3 dB on the TPU)"
+          % (len(names), worst, HIGH_DB_ATOL))
+    return worst
+
+
+def high_training_set(dev, x_highest, pokes=100):
+    """Phase 24c: load_features at modality 5 under MRGAN_MEL_PRECISION=high,
+    counted: 72 HIGH launches, none at "highest"; the log-mel columns within
+    0.1 dB of phase 6's HIGHEST build. Returns the HIGH launches."""
+    t0 = time.perf_counter()
+    with mel_precision("high"):
+        (x, y), highest, high, _ = driven_high(lambda: mreo.load_features(
+            modalities=5, synthetic_seed=0,
+            synthetic_kwargs={"pokes_per_object": pokes}, device=dev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_obj = len(MATERIALS) * 12
+    assert (highest, high) == (0, n_obj), (highest, high)
+    assert x.shape == x_highest.shape and torch.isfinite(x).all()
+    n_trace = 3 * FT_LEN
+    torch.testing.assert_close(x[:, :n_trace], x_highest[:, :n_trace],
+                               rtol=0, atol=0)
+    err = check_close("load_features high vs highest", x[:, n_trace:],
+                      x_highest[:, n_trace:], 0, HIGH_DB_ATOL)
+    print("phase 24: load_features modality 5 under MRGAN_MEL_PRECISION=high:"
+          " X %s, %d HIGH kernel launches (%d at highest), wall %.3f s; "
+          "log-mel block vs phase 6's HIGHEST build max_abs_err_db=%r "
+          "(atol %g dB)" % (tuple(x.shape), high, highest, wall, err,
+                            HIGH_DB_ATOL))
+    return high
+
+
+def driven_high(fn):
+    """fn() with the kernel counts set to 0 just before and read just after:
+    (result, highest launches, high launches, bin-group sums)."""
+    mel_cuda.launches = mel_cuda.high_launches = mel_cuda.reduce_launches = 0
+    result = fn()
+    return (result,) + high_counts()
+
+
+def high_algorithm_bound(frames):
+    """The kernel's method at "high": its DFT as three bf16 GEMM passes at
+    the bf16 dense peak plus the dense projection at the TF32 peak (ms)."""
+    n_bins = N_FFT // 2 + 1
+    return 1e3 * (3 * 2 * 2 * N_FFT * n_bins * frames / BF16_PEAK
+                  + 2 * n_bins * 128 * frames / TF32_PEAK)
+
+
+# (windows, samples each) timed in phase 24: F = 19, 114, 1,368, 48,128
+HIGH_TIME_SHAPES = ((1, AUDIO_LEN), (6, AUDIO_LEN), (72, AUDIO_LEN),
+                    (512, 48000))
+
+
+def high_times(dev, shapes=HIGH_TIME_SHAPES):
+    """Phase 24d: CUDA-event times at ``shapes``, in turns: the HIGH kernel,
+    the HIGHEST kernel, the plain bf16x3 path, the cuFFT route. Returns {F:
+    (high, highest, plain, cuFFT ms)} and the bounds."""
+    timing, bounds = {}, {}
+    for n, audio_len in shapes:
+        audio = torch.from_numpy(np.random.RandomState(2).randn(
+            n, audio_len).astype(np.float32) * 100).to(dev)
+        t = mel.num_frames(audio_len, HOP)
+        padded = mel.reflect_pad(audio, N_FFT).contiguous()
+        frames = padded.unfold(-1, N_FFT, HOP).reshape(-1, N_FFT)
+        fns = (lambda: mel_cuda.mel_power_framed(padded, t, HOP,
+                                                 precision="high"),
+               lambda: mel_cuda.mel_power_framed(padded, t, HOP),
+               lambda: mel_cuda.mel_power_reference(frames, precision="high"),
+               lambda: stft_mel_power(audio))
+        runs = [[] for _ in fns]
+        for order in (range(4), reversed(range(4))):  # in turns
+            for i in order:
+                runs[i].append(cuda_ms(fns[i]))
+        f = n * t
+        timing[f] = tuple(statistics.median(r) for r in runs)
+        bounds[f] = mel_bound(n, padded.shape[1], f) + (
+            high_algorithm_bound(f),)
+        ms, bound = timing[f], bounds[f]
+        print("phase 24 times F=%d: HIGH kernel %.4f ms, HIGHEST kernel "
+              "%.4f ms, plain bf16x3 %.4f ms, cuFFT route %.4f ms (runs %s); "
+              "bound %.4f ms (%s: HIGH kernel at %.2f%%), algorithm bound "
+              "(DFT as 3 bf16 GEMM passes) %.4f ms (HIGH kernel at %.1f%%), "
+              "3xTF32 %.4f ms" % (
+                  f, *ms, [["%.4f" % v for v in r] for r in runs], bound[0],
+                  bound[1], 100 * bound[0] / ms[0], bound[3],
+                  100 * bound[3] / ms[0], bound[2]))
+    return timing, bounds
+
+
+class PokeTimer:
+    """Wraps MaterialClassifier.classify_raw_poke and predict_logits while
+    installed: CUDA-event milliseconds of each classify_raw_poke call, and
+    the logits of each prediction."""
+
+    def __init__(self):
+        self.ms, self.logits = [], []
+
+    @contextlib.contextmanager
+    def installed(self):
+        classify, logits = (MaterialClassifier.classify_raw_poke,
+                            MaterialClassifier.predict_logits)
+        timer = self
+
+        def timed(clf, raw, index=-1):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            name = classify(clf, raw, index)
+            end.record()
+            end.synchronize()
+            timer.ms.append(start.elapsed_time(end))
+            return name
+
+        def kept(clf, x):
+            out = logits(clf, x)
+            timer.logits.append(out.detach().clone())
+            return out
+
+        MaterialClassifier.classify_raw_poke = timed
+        MaterialClassifier.predict_logits = kept
+        try:
+            yield self
+        finally:
+            MaterialClassifier.classify_raw_poke = classify
+            MaterialClassifier.predict_logits = logits
+
+
+def collect_phase(dev, ckpt, seqs=6, timescale=20):
+    """Phase 25: the live collection entry point on the card, classifying
+    every poke with phase 9's checkpoint; the saved pokes classified again
+    offline, and under MRGAN_MEL_PRECISION=high. Returns the (highest, high)
+    kernel launches of the driven paths."""
+    out = OUT_DIR / "collect"
+    if out.exists():
+        for old in out.glob("*.pkl"):
+            old.unlink()
+    argv = ["-n", "metal_block", "-s", str(seqs), "--material", "metal",
+            "--timescale", str(timescale), "--no-camera", "--data-dir",
+            str(out), "--classifier", ckpt, "--device", "cuda"]
+    live = PokeTimer()
+    t0 = time.perf_counter()
+    with live.installed():
+        (lines, wall), highest, high, _ = driven_high(
+            lambda: run_cli(collect_cli.main, argv))
+    print("\n".join(lines))
+    assert not count(lines, "classification failed"), lines
+    predicted = [l for l in lines if "predicted material:" in l]
+    assert len(predicted) == seqs, predicted
+    assert (highest, high) == (seqs, 0), (highest, high)
+    assert len(live.ms) == len(live.logits) == seqs
+    files = sorted(out.glob("newdata_metal_block_%dseqs*.pkl" % seqs))
+    assert len(files) == 1, files
+    with open(files[0], "rb") as f:
+        raw = pickle.load(f)
+    assert len(raw["collisionTime"]) == seqs
+
+    clf = MaterialClassifier.load(ckpt, device=dev)
+    offline, high_run = PokeTimer(), PokeTimer()
+    with offline.installed():
+        names = [clf.classify_raw_poke(raw, index=i) for i in range(seqs)]
+    with high_run.installed(), mel_precision("high"):
+        (high_names, h_highest, h_high, _) = driven_high(
+            lambda: [clf.classify_raw_poke(raw, index=i)
+                     for i in range(seqs)])
+    assert (h_highest, h_high) == (0, seqs), (h_highest, h_high)
+    want = [l.rsplit(": ", 1)[1] for l in predicted]
+    assert names == want, (names, want)
+    lip = lipschitz(clf.disc)
+    gaps, bounds, db_gaps = [], [], []
+    for i in range(seqs):
+        torch.testing.assert_close(offline.logits[i], live.logits[i],
+                                   rtol=0, atol=ROUNDING_ATOL)
+        # the HIGH poke's features differ from the HIGHEST one's in the
+        # log-mel columns only: its logits move by at most the Lipschitz
+        # bound of that gap
+        feats = [poke_features(clf, raw, i, p) for p in ("highest", "high")]
+        n_trace = 3 * FT_LEN
+        db_gaps.append((feats[1][:, n_trace:] - feats[0][:, n_trace:])
+                       .abs().max().item())
+        d_scaled = (clf._prep(feats[1]) - clf._prep(feats[0])).norm(dim=-1)
+        bounds.append((lip * d_scaled + ROUNDING_ATOL).item())
+        gaps.append((high_run.logits[i] - offline.logits[i]).abs().max()
+                    .item())
+        assert torch.isfinite(high_run.logits[i]).all()
+    assert max(db_gaps) <= HIGH_DB_ATOL, db_gaps
+    assert all(g <= b for g, b in zip(gaps, bounds)), (gaps, bounds)
+    print("phase 25: cli.collect.main %s: %d pokes, a prediction each %s, "
+          "%d DFT kernel launches (one a poke), wall %.3f s (phase %.3f s); "
+          "per-poke classify_raw_poke %s ms (CUDA events; median %.4f ms; "
+          "offline, with the collection stack stopped, median %.4f ms, at "
+          "high %.4f ms); offline re-classification of the saved pickle: the "
+          "same names, logits max_abs_err=%r (atol %g); under "
+          "MRGAN_MEL_PRECISION=high: %d HIGH launches, names %s (%s), "
+          "log-mel gap %r dB (atol %g), logits gap %s <= bound %s" % (
+              " ".join(argv), seqs, want, highest, wall,
+              time.perf_counter() - t0, ["%.4f" % m for m in live.ms],
+              statistics.median(live.ms), statistics.median(offline.ms),
+              statistics.median(high_run.ms),
+              max((a - b).abs().max().item() for a, b in zip(
+                  offline.logits, live.logits)), ROUNDING_ATOL, h_high,
+              high_names, "equal" if high_names == names else "differ",
+              max(db_gaps), HIGH_DB_ATOL, ["%.3g" % g for g in gaps],
+              ["%.3g" % b for b in bounds]))
+    return highest, h_high
+
+
+def poke_features(clf, raw, i, precision):
+    """Poke i's modality-5 features as classify_raw_poke builds them, at the
+    given mel precision (not counted: the counts are read already)."""
+    keys = ("collisionTime", "RGripRFingerTime", "RGripRFingerForce",
+            "temperatureTime", "temperatureRaw", "contactmicTime",
+            "contactmic")
+    w = preprocess.process_sequences(
+        {k: [raw[k][i]] for k in keys}, clf.ft_time, clf.c_time,
+        streams={"force", "temperature", "contact"}, device=clf.device)
+    with mel_precision(precision):
+        return features.assemble(5, **{
+            k: clf._tensor(np.asarray(w[k], np.float32))
+            for k in ("temperature", "force0", "force1", "contact")})
+
+
+def high_phase(dev, windows, sms, x_highest):
+    """Phase 24. Returns (the HIGH launches of the driven path, the largest
+    log-mel dB error against the plain bf16x3 version, times, bounds)."""
+    checked, db_err = high_variants(dev, windows, sms)
+    print("phase 24: %d kernel variants checked at precision high" % checked)
+    high_golden(dev)
+    launches = high_training_set(dev, x_highest)
+    timing, bounds = high_times(dev)
+    return launches, db_err, timing, bounds
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; "
@@ -2106,12 +2452,15 @@ def main():
           torch.version.cuda, "sms", sms)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc a source, side by side
-        for built in [pool.submit(m.build) for m in (mel_cuda, lstm_cuda)]:
+    with ThreadPoolExecutor(4) as pool:  # one nvcc (or g++) a source, side by side
+        builds = [pool.submit(m.build) for m in (mel_cuda, lstm_cuda)]
+        builds += [pool.submit(serialdev.sim_path, name) for name in SIMS]
+        for built in builds:
             built.result()
-    print("built %s and %s in %.3f s" % (mel_cuda.library_path().name,
-                                         lstm_cuda.library_path().name,
-                                         time.perf_counter() - t0))
+    print("built %s, %s and the firmware simulators %s in %.3f s" % (
+        mel_cuda.library_path().name, lstm_cuda.library_path().name,
+        ", ".join(Path(b.result()).name for b in builds[2:]),
+        time.perf_counter() - t0))
     for line in (mel_cuda.build_log + lstm_cuda.build_log).splitlines():
         if any(w in line for w in ("registers", "spill", "Compiling")):
             print("  ptxas:", line.strip())
@@ -2260,7 +2609,7 @@ def main():
     assert train_launches == 2 * 72, train_launches
     cell = full_cell(ds)
     t_phase["8"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
-    fit_launches = fitted_classifier(dev, x, y, synth)[0]
+    (fit_launches, _), clf_path = fitted_classifier(dev, x, y, synth)
     t_phase["9"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
     training_kernel_times(contact)
     step_times(ds, cell)
@@ -2314,17 +2663,27 @@ def main():
     t_phase["22"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
     preprocess_phase(dev)
     t_phase["23"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
+
+    # -- this slice: precision "high", the live collection entry point --------
+    high_24, high_db_err, high_timing, high_bounds = high_phase(
+        dev, win_dev, sms, x)
+    t_phase["24"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
+    collect_highest, collect_high = collect_phase(dev, clf_path)
+    t_phase["25"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
     print("phase wall times: %s s; the script so far %.1f s" % (
         ", ".join("%s %.1f" % kv for kv in t_phase.items()),
         time.perf_counter() - script_t0))
     total = (launches + train_launches + fit_launches + table_launches
-             + api_launches)
+             + api_launches + collect_highest)
+    high_total = high_24 + collect_high
     print("kernel launches on the driven paths: mel_power: serving %d, "
           "training (phases 6-7) %d, phase 9 %d, phases 12-15 %d, phase 21 "
-          "%d: %d; lstm_scan_fwd / lstm_scan_bwd (phases 17-18): %d / %d; "
+          "%d, phase 25 %d: %d; mel_power_high: phase 24 %d, phase 25 %d: "
+          "%d; lstm_scan_fwd / lstm_scan_bwd (phases 17-18): %d / %d; "
           "phases 19, 20, 22 and 23 launch neither kernel" % (
               launches, train_launches, fit_launches, table_launches,
-              api_launches, total, *variant_launches))
+              api_launches, collect_highest, total, high_24, collect_high,
+              high_total, *variant_launches))
 
     print(gpu_line())
     lstm_source = "mrgan_tpu_torch/csrc/lstm_scan.cu"
@@ -2341,6 +2700,18 @@ def main():
         "bound_ms": bound[f_main][0],
         "bound_by": bound[f_main][1],
         "library_ms": timing[f_main][2],
+    }, {
+        "name": "mel_power_high",
+        "route": "cuda",
+        "source": "mrgan_tpu_torch/csrc/mel_power.cu",
+        "replaces": "mrgan_tpu/ops/mel_pallas.py:62",
+        "launches": high_total,
+        "max_abs_err": high_db_err,
+        "ms": high_timing[f_main][0],
+        "plain_ms": high_timing[f_main][2],
+        "bound_ms": high_bounds[f_main][0],
+        "bound_by": high_bounds[f_main][1],
+        "library_ms": high_timing[f_main][3],
     }] + [{
         "name": name,
         "route": "cuda",

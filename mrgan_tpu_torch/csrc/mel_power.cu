@@ -1,8 +1,9 @@
-// Fused DFT -> power -> mel projection for Hopper (sm_90a), 3xTF32 on the
-// tensor cores.
+// Fused DFT -> power -> mel projection for Hopper (sm_90a), 3xTF32 or bf16x3
+// on the tensor cores.
 //
-// Replaces mrgan_tpu/ops/mel_pallas.py::_mel_kernel at Precision.HIGHEST. For
-// every STFT frame f:
+// Replaces mrgan_tpu/ops/mel_pallas.py::_mel_kernel at Precision.HIGHEST
+// (3xTF32) and at Precision.HIGH (bf16x3, its _dot_bf16x3). For every STFT
+// frame f:
 //
 //     re[k]  = sum_n x_f[n] * Cw[n, k]        (window-premultiplied cosines)
 //     im[k]  = sum_n x_f[n] * Sw[n, k]        (window-premultiplied sines)
@@ -23,6 +24,22 @@
 // the L2 -> SM traffic binds as much as the tensor cores; at serving sizes
 // (F = 19 .. 1,368 frames) the question is how many SMs get work at all.
 //
+// Precision.HIGH (the bf16 tiles, BF16 = true) is the TPU's own split on
+// Hopper's bf16 tensor cores: each operand x = hi + lo with hi = bf16(x) and
+// lo = bf16(x - hi), both rounded to nearest even, and x*y ~ hi_x*hi_y +
+// hi_x*lo_y + lo_x*hi_y in fp32. bf16 keeps 8 significant bits, so the
+// split holds x to ~2^-17 and a product to ~2^-16 (~1e-3 dB after the
+// ref-max log scaling), against 3xTF32's ~2^-22: it is what a user of
+// MRGAN_MEL_PRECISION=high asked for, not a cheaper TF32 mode with another
+// error profile. A k16 bf16 MMA does the work of two k8 TF32 ones at the
+// same instruction rate, so HIGH halves the tensor-core work, as on the
+// MXU. The basis stays fp32 in memory and is split as it is used; the
+// frames are split after centring (below) on a centre the wrapper rounds to
+// an integer at HIGH (ops/mel_cuda.py, row_centers), so that integer ADC
+// counts stay integers, which a bf16 head and residual hold exactly. The
+// kernel's rounding is held to the plain bf16x3 version of
+// ops/mel_cuda.py with the same centring, not to fp32.
+//
 // Design:
 // - The basis is constant and laid out on the host (ops/mel_cuda.py,
 //   kernel_basis): (2 * n_bins_padded, n_fft), K-major (bins x samples), cos
@@ -35,14 +52,16 @@
 // - Three products into one fp32 accumulator per fragment, issued pass by
 //   pass (lo*hi, hi*lo, hi*hi) so consecutive products go to different
 //   accumulators. The large tile (128 frames x 64 bins) issues
-//   wgmma.m64n128k8.tf32 from two warpgroups: frames from registers, the
-//   split basis slice K-major in shared memory as unswizzled core matrices
-//   (8 rows x 16 B) behind descriptors; one slice's products stay in flight
-//   while the next slice is split and its frame fragments built. The small
-//   tiles (16 x 8 and 32 x 16 for a few poke windows) use
-//   mma.sync.m16n8k8.tf32 with the samples split across the 8 warps (their
-//   re/im sums are added in warp order before squaring): there latency and
-//   L2 traffic, not the tensor cores, set the pace.
+//   wgmma.m64n128k8.tf32 (HIGH: m64n128k16.bf16) from two warpgroups:
+//   frames from registers, the split basis slice K-major in shared memory as
+//   unswizzled core matrices (8 rows x 16 B) behind descriptors; one slice's
+//   products stay in flight while the next slice is split and its frame
+//   fragments built. The small tiles (16 x 8 and 32 x 16 for a few poke
+//   windows) use mma.sync.m16n8k8.tf32 with the samples split across the 8
+//   warps (HIGH: m16n8k16.bf16, 4 warps along the samples x 2 along the
+//   bins, so that a 64-sample slice still gives each warp one k16 step);
+//   their re/im sums are added in warp order before squaring: there latency
+//   and L2 traffic, not the tensor cores, set the pace.
 // - Each frame is taken less a per-row constant c (the row's mean, from the
 //   wrapper) and c * (the basis row's float64 sum) is added back: exact
 //   algebra that keeps a DC offset (the contact mic's 2048 ADC counts) out
@@ -69,6 +88,7 @@
 //   rows. mel_group_sum then adds the groups of each band in group order. No
 //   atomics: the output is bitwise the same from run to run.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -85,10 +105,13 @@ constexpr int FFT_STEP = 64;  // n_fft must be a multiple of every tile's BK
 // 16 frames x 8 basis rows (4 bins). With WGMMA the 8 warps are two
 // warpgroups of 64 frames that each issue wgmma over all BC basis rows; the
 // accumulator fragments are laid out as mma.sync's (WARPS_M = 8, WM = 1).
+// BF16 tiles take the bf16x3 products (k16 steps), the others 3xTF32 (k8).
 template <int WARPS_M_, int WARPS_N_, int WM_, int WN_, int BK_, int STAGES_, int MIN_BLOCKS_,
-          bool WGMMA_ = false>
+          bool WGMMA_ = false, bool BF16_ = false>
 struct Tile {
   static constexpr bool WGMMA = WGMMA_;
+  static constexpr bool BF16 = BF16_;
+  static constexpr int KSTEP = BF16 ? 16 : 8;   // samples per MMA
   static constexpr int WARPS_M = WARPS_M_, WARPS_N = WARPS_N_;
   static constexpr int WARPS_K = WARPS / (WARPS_M * WARPS_N);
   static constexpr int WM = WM_, WN = WN_, BK = BK_, STAGES = STAGES_;
@@ -96,19 +119,21 @@ struct Tile {
   static constexpr int BM = WARPS_M * WM * 16;  // frames per block
   static constexpr int BC = WARPS_N * WN * 8;   // basis rows per bin tile
   static constexpr int BN = BC / 2;             // bins per tile
-  static constexpr int KS = BK / (8 * WARPS_K); // k8 steps per warp per slice
+  static constexpr int KS = BK / (KSTEP * WARPS_K); // MMA k steps per warp per slice
   static constexpr int LDS = BK + 4;            // smem row stride: conflict-free fragments
   static constexpr int A_FLOATS = BM * LDS;     // frames slice [BM][LDS]
   // fp32 basis slice: [BC][LDS] for mma.sync's fragment loads; for wgmma
   // K-major core matrices (8 rows x 4 samples, 128 B) [BK / 4][BC / 8][8][4],
-  // split in place into their TF32 heads, the residuals going to LO
+  // split in place into their TF32 heads, the residuals going to LO (bf16:
+  // heads and residuals both go to LO, as bf16 core matrices of 8 rows x 8
+  // samples [BK / 8][BC / 8][8][8], one slice's in half the room)
   static constexpr int B_FLOATS = BC * (WGMMA ? BK : LDS);
   static constexpr int STAGE_FLOATS = A_FLOATS + B_FLOATS;
-  static constexpr int LO_FLOATS = WGMMA ? 2 * BC * BK : 0;  // residuals of two slices in turn
+  static constexpr int LO_FLOATS = WGMMA ? 2 * BC * BK : 0;  // split slices, two in turn
   static constexpr int PW_LD = BN + 1;          // power tile [BM][PW_LD]
   static constexpr int RED_FLOATS = WARPS_K > 1 ? WARPS_K * BM * BC : 0;
   static_assert(WARPS_K * WARPS_M * WARPS_N == WARPS, "warp layout");
-  static_assert(KS >= 1 && FFT_STEP % BK == 0, "slice depth");
+  static_assert(KS >= 1 && BK % (KSTEP * WARPS_K) == 0 && FFT_STEP % BK == 0, "slice depth");
   // between bin tiles the drained ring holds the re/im sums, then the power
   static_assert(RED_FLOATS + BM * PW_LD <= STAGES * STAGE_FLOATS, "epilogue fits the ring");
   // shared memory: row bases (long long), band ranges (int), row centers
@@ -132,6 +157,14 @@ struct Tile {
 using TileS = Tile<1, 1, 1, 2, 64, 4, 3>;  //  16 frames x  8 bins, mma.sync, 8-way sample split
 using TileM = Tile<1, 1, 2, 4, 64, 3, 2>;  //  32 frames x 16 bins, mma.sync, 8-way sample split
 using TileL = Tile<8, 1, 1, 16, 16, 3, 2, true>;  // 128 frames x 64 bins, wgmma, 2 blocks per SM
+// The same tiles at Precision.HIGH (bf16x3): the same frames x bins, shared
+// memory and blocks per SM, so every layout the wrapper picks works at both.
+using TileSH = Tile<1, 2, 1, 1, 64, 4, 3, false, true>;  // 4-way sample split x 2 bin warps
+using TileMH = Tile<1, 2, 2, 2, 64, 3, 2, false, true>;
+using TileLH = Tile<8, 1, 1, 16, 16, 3, 2, true, true>;
+static_assert(TileSH::BM == TileS::BM && TileSH::BN == TileS::BN && TileMH::BM == TileM::BM &&
+                  TileMH::BN == TileM::BN && TileLH::BYTES == TileL::BYTES,
+              "HIGH tiles cover the HIGHEST tiles' frames and bins");
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -172,6 +205,49 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// Two floats as bf16 heads and residuals, packed as an MMA register wants
+// them (x0, the lower sample, in the low half): hi = bf16(x), lo = bf16(x -
+// hi), both rounded to nearest even (x - hi is exact in fp32).
+__device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// d += a * b for one 16 x 8 x 16 bf16 tile, fp32 accumulation.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One k step of tile T's products: k8 TF32 or k16 bf16.
+template <typename T>
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  if constexpr (T::BF16)
+    mma_bf16(d, a, b);
+  else
+    mma_tf32(d, a, b);
+}
+
+// The 64 fp32 accumulator operands (%0 .. %63) of an m64n128 wgmma: 16 MMA
+// tiles of 8 columns x 4 values, laid out as mma.sync's.
+#define WGMMA_D_REGS                                                                         \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "         \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "         \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define WGMMA_D_TILE(d, i) "+f"(d[i][0]), "+f"(d[i][1]), "+f"(d[i][2]), "+f"(d[i][3])
+#define WGMMA_D_ARGS(d)                                                                      \
+  WGMMA_D_TILE(d, 0), WGMMA_D_TILE(d, 1), WGMMA_D_TILE(d, 2), WGMMA_D_TILE(d, 3),            \
+  WGMMA_D_TILE(d, 4), WGMMA_D_TILE(d, 5), WGMMA_D_TILE(d, 6), WGMMA_D_TILE(d, 7),            \
+  WGMMA_D_TILE(d, 8), WGMMA_D_TILE(d, 9), WGMMA_D_TILE(d, 10), WGMMA_D_TILE(d, 11),          \
+  WGMMA_D_TILE(d, 12), WGMMA_D_TILE(d, 13), WGMMA_D_TILE(d, 14), WGMMA_D_TILE(d, 15)
+
 // d += a * b over 64 frames x 128 basis rows x 8 samples for the warpgroup:
 // a in registers (this warp's 16 x 8 slice, mma.sync's fragment), b K-major
 // in shared memory behind `desc`.
@@ -180,25 +256,28 @@ __device__ __forceinline__ void wgmma_tf32_n128(float (&d)[16][4], const uint32_
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      WGMMA_D_REGS
       "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-      "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-      "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-      "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-      "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-      "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-      "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-      "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : WGMMA_D_ARGS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// The same over 16 samples in bf16 (a: mma.sync m16n8k16's A fragment, b
+// K-major, not transposed).
+__device__ __forceinline__ void wgmma_bf16_n128(float (&d)[16][4], const uint32_t (&a)[4],
+                                                uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      WGMMA_D_REGS
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : WGMMA_D_ARGS(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
 // Shared memory descriptor of a K-major, unswizzled operand: core matrices
 // of 8 rows x 16 B, `lbo` bytes apart along K, `sbo` bytes apart along N.
-__device__ __forceinline__ uint64_t wgmma_desc(const float* p, int lbo, int sbo) {
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, int lbo, int sbo) {
   return static_cast<uint64_t>((smem_addr(p) >> 4) & 0x3FFF) |
          static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
          static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
@@ -253,6 +332,22 @@ __device__ __forceinline__ void frame_fragment(const float* As, const float* cen
   }
 }
 
+// The same fragment for a k16 bf16 MMA (samples kb .. kb + 15), split into
+// bf16 heads and residuals: registers 0 and 2 hold row g's samples 2t, 2t+1
+// and 2t+8, 2t+9; registers 1 and 3 row g+8's.
+template <typename T>
+__device__ __forceinline__ void frame_fragment_bf16(const float* As, const float* center_s, int r0,
+                                                    int kb, int g, int t, uint32_t (&hi)[4],
+                                                    uint32_t (&lo)[4]) {
+  const float* a = As + (r0 + g) * T::LDS + kb + 2 * t;
+  const float* b = a + 8 * T::LDS;
+  const float c0 = center_s[r0 + g], c1 = center_s[r0 + g + 8];
+  split_bf16x2(a[0] - c0, a[1] - c0, hi[0], lo[0]);
+  split_bf16x2(b[0] - c1, b[1] - c1, hi[1], lo[1]);
+  split_bf16x2(a[8] - c0, a[9] - c0, hi[2], lo[2]);
+  split_bf16x2(b[8] - c1, b[9] - c1, hi[3], lo[3]);
+}
+
 // The products of one bin tile over all samples with mma.sync.
 template <typename T>
 __device__ __forceinline__ void mma_slices(float (&acc)[T::WM][T::WN][4], float* ring,
@@ -285,34 +380,46 @@ __device__ __forceinline__ void mma_slices(float (&acc)[T::WM][T::WN][4], float*
     const float* Bs = As + T::A_FLOATS;
 #pragma unroll
     for (int j = 0; j < T::KS; ++j) {
-      const int kb = (wk * T::KS + j) * 8;
+      const int kb = (wk * T::KS + j) * T::KSTEP;
       uint32_t ahi[T::WM][4], alo[T::WM][4];
-#pragma unroll
-      for (int i = 0; i < T::WM; ++i)
-        frame_fragment<T>(As, center_s, (wm * T::WM + i) * 16, kb, g, t, ahi[i], alo[i]);
       uint32_t bh[T::WN][2], bl[T::WN][2];
+      if constexpr (T::BF16) {
 #pragma unroll
-      for (int n = 0; n < T::WN; ++n) {
-        const float* b = Bs + ((wn * T::WN + n) * 8 + g) * T::LDS + kb + t;
-        const float y[2] = {b[0], b[4]};
+        for (int i = 0; i < T::WM; ++i)
+          frame_fragment_bf16<T>(As, center_s, (wm * T::WM + i) * 16, kb, g, t, ahi[i], alo[i]);
 #pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          bh[n][q] = to_tf32(y[q]);
-          bl[n][q] = to_tf32(y[q] - __uint_as_float(bh[n][q]));
+        for (int n = 0; n < T::WN; ++n) {  // samples 2t, 2t+1 and 2t+8, 2t+9 of basis row g
+          const float* b = Bs + ((wn * T::WN + n) * 8 + g) * T::LDS + kb + 2 * t;
+          split_bf16x2(b[0], b[1], bh[n][0], bl[n][0]);
+          split_bf16x2(b[8], b[9], bh[n][1], bl[n][1]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < T::WM; ++i)
+          frame_fragment<T>(As, center_s, (wm * T::WM + i) * 16, kb, g, t, ahi[i], alo[i]);
+#pragma unroll
+        for (int n = 0; n < T::WN; ++n) {
+          const float* b = Bs + ((wn * T::WN + n) * 8 + g) * T::LDS + kb + t;
+          const float y[2] = {b[0], b[4]};
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            bh[n][q] = to_tf32(y[q]);
+            bl[n][q] = to_tf32(y[q] - __uint_as_float(bh[n][q]));
+          }
         }
       }
 #pragma unroll
       for (int n = 0; n < T::WN; ++n)
 #pragma unroll
-        for (int i = 0; i < T::WM; ++i) mma_tf32(acc[i][n], alo[i], bh[n]);
+        for (int i = 0; i < T::WM; ++i) mma<T>(acc[i][n], alo[i], bh[n]);
 #pragma unroll
       for (int n = 0; n < T::WN; ++n)
 #pragma unroll
-        for (int i = 0; i < T::WM; ++i) mma_tf32(acc[i][n], ahi[i], bl[n]);
+        for (int i = 0; i < T::WM; ++i) mma<T>(acc[i][n], ahi[i], bl[n]);
 #pragma unroll
       for (int n = 0; n < T::WN; ++n)
 #pragma unroll
-        for (int i = 0; i < T::WM; ++i) mma_tf32(acc[i][n], ahi[i], bh[n]);
+        for (int i = 0; i < T::WM; ++i) mma<T>(acc[i][n], ahi[i], bh[n]);
     }
   }
 }
@@ -356,35 +463,65 @@ __device__ __forceinline__ void wgmma_slices(float (&acc)[16][4], float* ring, f
     float* As = ring + (it % T::STAGES) * T::STAGE_FLOATS;
     float* Bh = As + T::A_FLOATS;
     float* Bl = lo_buf + P * SLICE;
+    // bf16: the heads and the residuals both go to Bl, in its two halves
+    __nv_bfloat16* H = reinterpret_cast<__nv_bfloat16*>(Bl);
+    __nv_bfloat16* L = H + SLICE;
+    if constexpr (T::BF16) {
 #pragma unroll
-    for (int i = tid; i < SLICE / 4; i += THREADS) {  // split the basis slice in place
-      const float4 x = reinterpret_cast<const float4*>(Bh)[i];
-      const float xs[4] = {x.x, x.y, x.z, x.w};
-      float h[4], l[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        h[q] = __uint_as_float(to_tf32(xs[q]));
-        l[q] = __uint_as_float(to_tf32(xs[q] - h[q]));
+      for (int i = tid; i < SLICE / 4; i += THREADS) {
+        // float4 i holds samples 4 (i / BC) .. + 3 of basis row i % BC
+        const float4 x = reinterpret_cast<const float4*>(Bh)[i];
+        const int k4 = i / T::BC, r = i % T::BC;
+        const int o = ((k4 / 2 * (T::BC / 8) + r / 8) * 8 + r % 8) * 8 + 4 * (k4 % 2);
+        uint2 h, l;
+        split_bf16x2(x.x, x.y, h.x, l.x);
+        split_bf16x2(x.z, x.w, h.y, l.y);
+        *reinterpret_cast<uint2*>(H + o) = h;
+        *reinterpret_cast<uint2*>(L + o) = l;
       }
-      reinterpret_cast<float4*>(Bh)[i] = make_float4(h[0], h[1], h[2], h[3]);
-      reinterpret_cast<float4*>(Bl)[i] = make_float4(l[0], l[1], l[2], l[3]);
-    }
 #pragma unroll
-    for (int j = 0; j < T::KS; ++j)
-      frame_fragment<T>(As, center_s, warp * 16, j * 8, g, t, ahi[P][j], alo[P][j]);
+      for (int j = 0; j < T::KS; ++j)
+        frame_fragment_bf16<T>(As, center_s, warp * 16, j * 16, g, t, ahi[P][j], alo[P][j]);
+    } else {
+#pragma unroll
+      for (int i = tid; i < SLICE / 4; i += THREADS) {  // split the basis slice in place
+        const float4 x = reinterpret_cast<const float4*>(Bh)[i];
+        const float xs[4] = {x.x, x.y, x.z, x.w};
+        float h[4], l[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          h[q] = __uint_as_float(to_tf32(xs[q]));
+          l[q] = __uint_as_float(to_tf32(xs[q] - h[q]));
+        }
+        reinterpret_cast<float4*>(Bh)[i] = make_float4(h[0], h[1], h[2], h[3]);
+        reinterpret_cast<float4*>(Bl)[i] = make_float4(l[0], l[1], l[2], l[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < T::KS; ++j)
+        frame_fragment<T>(As, center_s, warp * 16, j * 8, g, t, ahi[P][j], alo[P][j]);
+    }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for wgmma's reads
     __syncthreads();
 
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
     for (int j = 0; j < T::KS; ++j) {
-      // samples 8j .. 8j + 7: two core-matrix columns, BC * 16 B apart
+      // one k step's samples: two core-matrix columns (16 B of samples
+      // each), BC * 16 B apart
       constexpr int LBO = T::BC * 16, SBO = 128;
-      const uint64_t dh = wgmma_desc(Bh + j * 2 * T::BC * 4, LBO, SBO);
-      const uint64_t dl = wgmma_desc(Bl + j * 2 * T::BC * 4, LBO, SBO);
-      wgmma_tf32_n128(acc, alo[P][j], dh);
-      wgmma_tf32_n128(acc, ahi[P][j], dl);
-      wgmma_tf32_n128(acc, ahi[P][j], dh);
+      if constexpr (T::BF16) {
+        const uint64_t dh = wgmma_desc(H + j * 2 * T::BC * 8, LBO, SBO);
+        const uint64_t dl = wgmma_desc(L + j * 2 * T::BC * 8, LBO, SBO);
+        wgmma_bf16_n128(acc, alo[P][j], dh);
+        wgmma_bf16_n128(acc, ahi[P][j], dl);
+        wgmma_bf16_n128(acc, ahi[P][j], dh);
+      } else {
+        const uint64_t dh = wgmma_desc(Bh + j * 2 * T::BC * 4, LBO, SBO);
+        const uint64_t dl = wgmma_desc(Bl + j * 2 * T::BC * 4, LBO, SBO);
+        wgmma_tf32_n128(acc, alo[P][j], dh);
+        wgmma_tf32_n128(acc, ahi[P][j], dl);
+        wgmma_tf32_n128(acc, ahi[P][j], dh);
+      }
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
@@ -605,24 +742,29 @@ int launch(const float* src, long long ld, int frames_per_row, int hop,
 // tile picks the tile (0 = 16 x 8, 1 = 32 x 16, 2 = 128 x 64 frames x bins);
 // groups > 1 splits the bin tiles into that many groups, whose mel partials
 // go through `partials` (groups, total_frames, 128) and mel_group_sum.
+// high = 0 takes the DFT products as 3xTF32 (Precision.HIGHEST), high = 1
+// as bf16x3 (Precision.HIGH).
 extern "C" int mrgan_mel_power(const float* src, long long ld, int frames_per_row, int hop,
                                long long total_frames, const float* center,
                                const float* basis, const float* basis_sum, int basis_bins,
                                const float* melw, const int* band_lo, const int* band_hi,
-                               int n_fft, int n_bins, int n_mels, int tile, int groups,
+                               int n_fft, int n_bins, int n_mels, int tile, int groups, int high,
                                float* partials, float* out, void* stream) {
   if (n_mels != N_MELS || n_fft % FFT_STEP != 0 || n_fft < FFT_STEP || n_bins < 1 ||
-      total_frames < 1 || frames_per_row < 1)
+      total_frames < 1 || frames_per_row < 1 || (high != 0 && high != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MEL_TILE(I, T)                                                                   \
-  if (tile == I)                                                                         \
-    return launch<T>(src, ld, frames_per_row, hop, total_frames, center, basis, basis_sum, \
-                     basis_bins, melw, band_lo, band_hi, n_fft, n_bins, groups, partials,  \
-                     out, s);
-  MEL_TILE(0, TileS)
-  MEL_TILE(1, TileM)
-  MEL_TILE(2, TileL)
+#define MEL_TILE(I, T, TH)                                                                 \
+  if (tile == I)                                                                           \
+    return high ? launch<TH>(src, ld, frames_per_row, hop, total_frames, center, basis,    \
+                             basis_sum, basis_bins, melw, band_lo, band_hi, n_fft, n_bins, \
+                             groups, partials, out, s)                                     \
+                : launch<T>(src, ld, frames_per_row, hop, total_frames, center, basis,     \
+                            basis_sum, basis_bins, melw, band_lo, band_hi, n_fft, n_bins,  \
+                            groups, partials, out, s);
+  MEL_TILE(0, TileS, TileSH)
+  MEL_TILE(1, TileM, TileMH)
+  MEL_TILE(2, TileL, TileLH)
 #undef MEL_TILE
   return static_cast<int>(cudaErrorInvalidValue);
 }

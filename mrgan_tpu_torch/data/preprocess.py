@@ -43,6 +43,12 @@ CONFIGS = list(
 TAXEL_1, TAXEL_2 = 3, 4  # processdata.py:51-53
 
 
+class ShortWindowError(ValueError):
+    """A poke whose sensor stream holds no samples to window (the JAX
+    package fails on such a poke too, in its gather). The collection
+    stack's classifier hook reports it and goes on."""
+
+
 def _padded(times, values, impacts, device):
     t, v, m = resample.make_padded(values, times)
     # float64 host times are cast to float32 before any arithmetic, as the
@@ -81,6 +87,17 @@ def process_sequences(raw, duration, contact_len, streams=None,
     n_ft = int(100 * duration)
     n_c = int(48000 * contact_len)
     impacts = [float(t) for t in raw["collisionTime"]]
+    keys = {"force": ("RGripRFingerTime", "RGripRFingerForce"),
+            "pressure": ("RGripRFingerTime", "RGripRFingerPressure"),
+            "temperature": ("temperatureTime", "temperatureRaw"),
+            "contact": ("contactmicTime", "contactmic")}
+    for name in sorted(streams):
+        for key in keys[name]:
+            for i, x in enumerate(raw[key]):
+                if len(x) == 0:
+                    raise ShortWindowError(
+                        "poke %d of %d: %s holds no samples to window"
+                        % (i, len(raw[key]), key))
 
     def window(times, values, num_out):
         return _batched_window(times, values, impacts, 0.1, duration,

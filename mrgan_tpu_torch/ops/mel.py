@@ -9,8 +9,11 @@ then ``power @ melW``.
 The bases are built once in float64 numpy, exactly as the JAX package builds
 them, and cached as float32 tensors for each device. ``frontend_logmel``
 sends a CUDA tensor to the hand-written kernel (``ops.mel_cuda``) and a CPU
-tensor to the plain path here.
+tensor to the plain path here, under the JAX package's environment switches
+(``MRGAN_MEL_BACKEND``, ``MRGAN_MEL_PRECISION``).
 """
+
+import os
 
 import numpy as np
 import torch
@@ -166,35 +169,68 @@ def db_scale(mel, flatten=True):
 
 
 def logmel(audio, sr=48000, n_fft=2048, hop_length=512, n_mels=128,
-           flatten=True):
+           flatten=True, precision="highest"):
     """Batched log-mel spectrogram, plain torch: (B, N) -> (B, n_mels * T)
     flattened mel-major, or (B, n_mels, T).
 
     The three matmuls are ``mel_cuda.mel_power_reference``, the kernel's
-    plain version, so the plain path and the kernel's reference are one."""
+    plain version at ``precision`` ("highest" float32, "high" the bf16x3
+    split), so the plain path and the kernel's reference are one."""
     from . import mel_cuda
 
     frames = _frame(audio.to(torch.float32), n_fft, hop_length)
-    return db_scale(mel_cuda.mel_power_reference(frames, sr, n_fft, n_mels),
-                    flatten)
+    return db_scale(mel_cuda.mel_power_reference(frames, sr, n_fft, n_mels,
+                                                 precision), flatten)
 
 
 def frontend_logmel(audio, sr=48000, n_fft=2048, hop_length=512, n_mels=128,
                     flatten=True):
     """Production mel frontend (the mr_gan.py:44-47 surface).
 
-    A CUDA tensor goes to the fused kernel (``ops.mel_cuda.logmel``), a CPU
-    tensor to the plain path; no other device is served. fp32 parity is the
-    only precision.
+    The JAX package's switches, read at each call:
+
+      MRGAN_MEL_BACKEND   = auto (default) | gemm | pallas
+      MRGAN_MEL_PRECISION = highest (default, parity) | high (bf16x3 opt-in)
+
+    ``auto`` sends a CUDA tensor to the fused kernel (``ops.mel_cuda.logmel``,
+    the counterpart of the Pallas kernel) and a CPU tensor to the plain
+    path; ``pallas`` is the kernel, and raises for a CPU tensor; ``gemm`` is
+    the plain path, and raises for a CUDA tensor, where nothing runs it. No
+    other device is served. On the card ``high`` launches the kernel's bf16x3
+    mode (~1e-3 dB from the golden fixtures at half the tensor-core work).
+    On the CPU the JAX package takes its GEMM route, whose ``precision``
+    XLA's CPU backend does not apply, so its result is float32 under either
+    setting; the port's CPU result is that same float32 plain path.
     """
-    if audio.device.type == "cuda":
+    backend = os.environ.get("MRGAN_MEL_BACKEND", "auto").lower()
+    prec_name = os.environ.get("MRGAN_MEL_PRECISION", "highest").lower()
+    precisions = ("highest", "high")
+    if prec_name not in precisions:
+        raise ValueError(
+            "MRGAN_MEL_PRECISION=%r; valid: %s (DEFAULT/1-pass-bf16 is "
+            "rejected for parity use — 4.9 dB off the golden fixtures)"
+            % (prec_name, "/".join(precisions)))
+    if backend == "auto":
+        backend = "pallas" if audio.device.type == "cuda" else "gemm"
+    elif backend not in ("gemm", "pallas"):
+        raise ValueError("MRGAN_MEL_BACKEND=%r; valid: auto/gemm/pallas"
+                         % (backend,))
+    if audio.device.type not in ("cuda", "cpu"):
+        raise ValueError("frontend_logmel serves cuda and cpu tensors, got %s"
+                         % audio.device)
+    if backend == "pallas":
+        if audio.device.type != "cuda":
+            raise ValueError("MRGAN_MEL_BACKEND=pallas runs the mel kernel, "
+                             "which takes a CUDA tensor; got %s"
+                             % audio.device)
         from . import mel_cuda
 
         return mel_cuda.logmel(audio, sr=sr, n_fft=n_fft,
                                hop_length=hop_length, n_mels=n_mels,
-                               flatten=flatten)
-    if audio.device.type == "cpu":
-        return logmel(audio, sr=sr, n_fft=n_fft, hop_length=hop_length,
-                      n_mels=n_mels, flatten=flatten)
-    raise ValueError("frontend_logmel serves cuda and cpu tensors, got %s"
-                     % audio.device)
+                               flatten=flatten, precision=prec_name)
+    if audio.device.type != "cpu":
+        raise ValueError("MRGAN_MEL_BACKEND=gemm is the plain path, which "
+                         "the port runs on the CPU only; got %s"
+                         % audio.device)
+    return logmel(audio, sr=sr, n_fft=n_fft, hop_length=hop_length,
+                  n_mels=n_mels, flatten=flatten)

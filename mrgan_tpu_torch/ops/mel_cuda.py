@@ -2,18 +2,22 @@
 
 Port of ``mrgan_tpu/ops/mel_pallas.py``: DFT -> power -> mel projection in
 one kernel, so the (frames, 1025) power spectrum never reaches device
-memory. The kernel is CUDA C++ for ``sm_90a`` (3xTF32 on the tensor cores,
-cp.async-fed shared memory), built with ``nvcc`` into a shared library with
-a plain C entry point at first use and loaded with ``ctypes``;
-``csrc/mel_power.cu`` says what bounds it and how it is laid out.
+memory. The kernel is CUDA C++ for ``sm_90a`` (cp.async-fed shared memory,
+the DFT products on the tensor cores at one of the Pallas kernel's two
+precisions: "highest" as 3xTF32, "high" as bf16x3, its ``_dot_bf16x3``),
+built with ``nvcc`` into a shared library with a plain C entry point at
+first use and loaded with ``ctypes``; ``csrc/mel_power.cu`` says what
+bounds it and how it is laid out. Every tile and bin grouping works at
+both precisions.
 
 Here, on the host: the DFT bases in the kernel's layout (``kernel_basis``),
 each band's bin range (``_bands``), and the choice of tile and bin-group
 count from the number of frames and the card's SM count (``_layout``).
 
-The wrappers run the plain three-matmul ``mel_power_reference`` for a CPU
-tensor, and launch the kernel for a CUDA tensor or raise. ``launches``
-counts launches of the DFT kernel (one per wrapper call on a CUDA tensor);
+The wrappers run the plain three-matmul ``mel_power_reference`` (at the
+same precision) for a CPU tensor, and launch the kernel for a CUDA tensor or
+raise. ``launches`` counts launches of the DFT kernel at "highest" and
+``high_launches`` at "high" (one per wrapper call on a CUDA tensor);
 ``reduce_launches`` counts launches of ``mel_group_sum``, the second kernel
 that adds the bin groups' partials when a launch splits the bins.
 """
@@ -42,18 +46,72 @@ BASIS_STEP = 64     # kernel_basis pads the bins to a multiple of the widest til
 # with fewer the last wave leaves SMs idle, with more the partials grow
 BLOCKS_PER_SM = 8
 
-launches = 0        # DFT kernel launches since the count was last set to 0
+PRECISIONS = ("highest", "high")  # 3xTF32 and bf16x3, Precision.HIGHEST / HIGH
+
+launches = 0        # "highest" DFT kernel launches since the count was set to 0
+high_launches = 0   # "high" (bf16x3) DFT kernel launches since then
 reduce_launches = 0  # mel_group_sum launches since the count was last set to 0
 build_log = ""      # nvcc's output (-Xptxas -v) from the build, if this process built
 _lib = None
 
 
-def mel_power_reference(frames, sr=48000, n_fft=2048, n_mels=128):
-    """Plain mel power: (..., n_fft) frames -> (..., n_mels), three matmuls."""
+def _check_precision(precision):
+    if precision not in PRECISIONS:
+        raise ValueError("precision must be one of %s, got %r"
+                         % ("/".join(PRECISIONS), precision))
+    return precision
+
+
+def dot_bf16x3(a, b):
+    """a @ b as three bf16 products, ``mel_pallas._dot_bf16x3``'s split:
+    each operand's bf16 head (round to nearest even) and the bf16 residual
+    of what is left, hi*hi + hi*lo + lo*hi, each product of the upcast
+    halves (exact in float32) summed in float32."""
+    def split(x):
+        hi = x.to(torch.bfloat16)
+        return hi.float(), (x - hi.float()).to(torch.bfloat16).float()
+
+    (a_hi, a_lo), (b_hi, b_lo) = split(a), split(b)
+    return a_hi @ b_hi + a_hi @ b_lo + a_lo @ b_hi
+
+
+def mel_power_reference(frames, sr=48000, n_fft=2048, n_mels=128,
+                        precision="highest", center=None):
+    """Plain mel power: (..., n_fft) frames -> (..., n_mels), three matmuls.
+    At "high" the two DFT products are ``dot_bf16x3``'s; the projection onto
+    the filterbank stays float32, as in the Pallas kernel.
+
+    ``center`` (one value per frame, optional; ``row_centers``) is the
+    kernel's row centring written out: the frames less it go through the DFT
+    products and center times each basis column's sum is added back. That
+    is exact algebra, but at "high" it moves the bf16 split's rounding, so
+    the kernel at "high" is held to this form; without it the function is
+    the Pallas kernel's."""
     cw, sw, melw = mel_ref.bases(sr, n_fft, n_mels, frames.device)
-    re = frames @ cw
-    im = frames @ sw
+    dot = (torch.matmul if _check_precision(precision) == "highest"
+           else dot_bf16x3)
+    if center is None:
+        re, im = dot(frames, cw), dot(frames, sw)
+    else:
+        sums = kernel_basis(sr, n_fft, n_mels, frames.device)[1]
+        n_bins = cw.shape[1]
+        c = center.unsqueeze(-1)
+        x = frames - c
+        re = dot(x, cw) + c * sums[0:2 * n_bins:2]
+        im = dot(x, sw) + c * sums[1:2 * n_bins:2]
     return (re * re + im * im) @ melw
+
+
+def row_centers(src, precision="highest"):
+    """The constant the kernel takes off every frame of each row of ``src``
+    (and puts back through the basis sums): the row's mean, rounded to an
+    integer at "high". Integer samples (ADC counts) then stay integers,
+    which a bf16 head and residual hold exactly below 2^16, while a DC
+    offset still leaves the products; an unrounded centre would add a split
+    error to every sample (on zero-mean request windows, 0.0115 dB from
+    float64 against 0.0015 dB uncentred)."""
+    center = src.mean(dim=1)
+    return center.round() if _check_precision(precision) == "high" else center
 
 
 def _nvcc():
@@ -96,7 +154,7 @@ def build():
     fn = lib.mrgan_mel_power
     vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     fn.argtypes = [vp, ll, i32, i32, ll, vp, vp, vp, i32, vp, vp, vp, i32, i32,
-                   i32, i32, i32, vp, vp, vp]
+                   i32, i32, i32, i32, vp, vp, vp]
     fn.restype = i32
     _lib = lib
     return lib
@@ -127,7 +185,8 @@ def kernel_basis(sr, n_fft, n_mels, device):
     sums). basis is float32 (2 * padded bins, n_fft), K-major, cos and sin
     interleaved per bin (row 2k is ``Cw[:, k]``, row 2k+1 ``Sw[:, k]``),
     zero past the last bin; bins are padded to a multiple of BASIS_STEP. The
-    kernel splits it into TF32 heads and residuals as it reads it. sums
+    kernel splits it into TF32 (or bf16) heads and residuals as it reads
+    it. sums
     holds each row's sum, taken in float64: the kernel takes a constant c
     off every frame of a row and adds c * sums back, exact algebra that
     keeps a DC offset out of the products (only bins 0 and 1 of the
@@ -232,11 +291,12 @@ def _check(x, name):
 
 
 def _launch(src, ld, frames_per_row, hop, total, sr, n_fft, n_mels,
-            layout=None):
-    """Launch over ``total`` frames read in place from ``src``; ``layout``
-    (tile, groups) overrides ``_layout``'s choice, for checks of each
-    variant."""
-    global launches, reduce_launches
+            precision="highest", layout=None):
+    """Launch over ``total`` frames read in place from ``src`` at
+    ``precision``; ``layout`` (tile, groups) overrides ``_layout``'s choice,
+    for checks of each variant."""
+    global launches, high_launches, reduce_launches
+    high = _check_precision(precision) == "high"
     if n_mels != N_MELS or n_fft % FFT_STEP or n_fft < FFT_STEP:
         raise ValueError("the mel kernel takes n_mels=%d and n_fft a multiple "
                          "of %d, got n_mels=%d n_fft=%d"
@@ -248,14 +308,14 @@ def _launch(src, ld, frames_per_row, hop, total, sr, n_fft, n_mels,
     lib = build()
     basis, sums, basis_bins, melw, band_lo, band_hi, sms = _operands(
         sr, n_fft, n_mels, dev)
-    center = src.mean(dim=1)  # each row's mean: its frames' offset
+    center = row_centers(src, precision)  # each row's frames' offset
     n_bins = n_fft // 2 + 1
     tile, groups = layout or _layout(total, sms, n_bins)
     partials = (torch.empty((groups, total, n_mels), dtype=torch.float32,
                             device=dev) if groups > 1 else None)
     args = (src.data_ptr(), ld, frames_per_row, hop, total, center.data_ptr(),
             basis, sums, basis_bins, melw, band_lo, band_hi, n_fft, n_bins,
-            n_mels, tile, groups,
+            n_mels, tile, groups, int(high),
             None if partials is None else partials.data_ptr(),
             out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if dev.index == torch.cuda.current_device():
@@ -266,25 +326,28 @@ def _launch(src, ld, frames_per_row, hop, total, sr, n_fft, n_mels,
     if err != 0:
         raise RuntimeError("mel_power kernel launch failed: CUDA error %d"
                            % err)
-    launches += 1
+    if high:
+        high_launches += 1
+    else:
+        launches += 1
     reduce_launches += groups > 1
     return out
 
 
-def mel_power(frames, sr=48000, n_fft=2048, n_mels=128):
+def mel_power(frames, sr=48000, n_fft=2048, n_mels=128, precision="highest"):
     """Fused mel power spectrogram: (F, n_fft) float32 frames -> (F, n_mels)."""
     _check(frames, "frames")
     if frames.dim() != 2 or frames.shape[1] != n_fft:
         raise ValueError("frames must be (F, %d), got %s"
                          % (n_fft, tuple(frames.shape)))
     if frames.device.type == "cpu":
-        return mel_power_reference(frames, sr, n_fft, n_mels)
+        return mel_power_reference(frames, sr, n_fft, n_mels, precision)
     return _launch(frames, n_fft, 1, n_fft, frames.shape[0], sr, n_fft,
-                   n_mels)
+                   n_mels, precision)
 
 
 def mel_power_framed(padded, n_frames, hop_length=512, sr=48000, n_fft=2048,
-                     n_mels=128):
+                     n_mels=128, precision="highest"):
     """Mel power of every STFT frame of reflect-padded audio, read in place.
 
     padded: (B, N + n_fft) float32 from ``mel.reflect_pad``; frame t of
@@ -300,18 +363,20 @@ def mel_power_framed(padded, n_frames, hop_length=512, sr=48000, n_fft=2048,
     if padded.device.type == "cpu":
         frames = padded.unfold(-1, n_fft, hop_length)[:, :n_frames]
         return mel_power_reference(frames.reshape(-1, n_fft), sr, n_fft,
-                                   n_mels)
+                                   n_mels, precision)
     return _launch(padded, padded.shape[1], n_frames, hop_length,
-                   padded.shape[0] * n_frames, sr, n_fft, n_mels)
+                   padded.shape[0] * n_frames, sr, n_fft, n_mels, precision)
 
 
 def logmel(audio, sr=48000, n_fft=2048, hop_length=512, n_mels=128,
-           flatten=True):
-    """Drop-in for ``mel.logmel`` with the fused core: (B, N) -> (B, n_mels*T)
-    flattened mel-major, or (B, n_mels, T). The dB epilogue stays torch
-    elementwise ops, as the JAX package keeps it outside its kernel."""
+           flatten=True, precision="highest"):
+    """Drop-in for ``mel.logmel`` with the fused core (``mel_pallas.logmel``'s
+    counterpart): (B, N) -> (B, n_mels*T) flattened mel-major, or (B,
+    n_mels, T). The dB epilogue stays torch elementwise ops, as the JAX
+    package keeps it outside its kernel."""
     b, n = audio.shape
     t = mel_ref.num_frames(n, hop_length)
     padded = mel_ref.reflect_pad(audio.to(torch.float32), n_fft).contiguous()
-    mel = mel_power_framed(padded, t, hop_length, sr, n_fft, n_mels)
+    mel = mel_power_framed(padded, t, hop_length, sr, n_fft, n_mels,
+                           precision)
     return mel_ref.db_scale(mel.reshape(b, t, n_mels), flatten)

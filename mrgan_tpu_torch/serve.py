@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from . import MATERIALS
+from .data.preprocess import ShortWindowError  # noqa: F401 (re-exported)
 from .models import nets
 from .ops import features as feat_ops
 from .train import gan, protocol
@@ -89,7 +90,8 @@ class MaterialClassifier:
         stack's save schema (collectdataPoke.py's dataAll batch dict) ->
         impact windowing + lerp resampling at the classifier's trained
         durations (processdata.py:56-83 semantics) -> frontend -> material
-        name."""
+        name. A poke with a stream that holds no samples raises
+        ``ShortWindowError``, a ``ValueError``."""
         from .data import preprocess
 
         # window only the streams this modality's frontend reads — the

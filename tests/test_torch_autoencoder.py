@@ -162,17 +162,16 @@ def test_encodings_match_the_jax_packages():
         params, want)), rtol=TOL, atol=TOL)
 
 
-def test_ae_gan_fold_matches_the_jax_packages(monkeypatch):
-    """One fold through autoencoder.train_folds fed every draw of
-    autoencoder._train_one (the AE's initial parameters and permutations,
-    the GAN's parameters, batches and noise): the same test error; the
-    encodings within 1e-5 of the JAX autoencoder's; the JAX GAN run on the
-    port's encodings reads the same error; the port's GAN steps replayed in
-    float64 land on the JAX package's final discriminator and generator
-    with no entry outside the GAN trainer's tolerance; the fold's float32
-    parameters are that replay's float32 twin bit for bit, and its final
-    discriminator is held to the JAX package's at the bounds stated
-    below."""
+def ae_gan_fold(monkeypatch, seed=7):
+    """One AE-GAN fold through autoencoder.train_folds fed every draw that
+    the JAX package's autoencoder._train_one splits from PRNGKey(seed) (the
+    AE's initial parameters and permutations, the GAN's parameters, batches
+    and noise), and the JAX runs it is held to. Returns a dict: the port's
+    and the JAX package's test errors, the port's encodings, the JAX GAN's
+    error and final parameters on those encodings ("want"), the port's
+    final parameters ("port", float32) and its GAN steps replayed in
+    float64 and float32 ("f64", "f32"), all in the JAX package's layout.
+    tools/ae_gan_f32_seeds.py runs it over several seeds."""
     d, n_lab, n_train, n_test = 40, 48, 120, 30
     x_lab, y_lab = _rows(n_lab, d, 4)
     pool, _ = _rows(n_train, d, 5)
@@ -182,7 +181,7 @@ def test_ae_gan_fold_matches_the_jax_packages(monkeypatch):
                   pad_multiple=1)
     jcfg = jax_gan.GanConfig(matmul_weight_dtype="float32", **common)
     cfg = gan.GanConfig(**common)
-    key = jax.random.PRNGKey(7)
+    key = jax.random.PRNGKey(seed)
     args = (x_lab, y_lab.astype(np.int32), pool, x_test,
             y_test.astype(np.int32))
     want_err = jax.jit(functools.partial(
@@ -216,24 +215,46 @@ def test_ae_gan_fold_matches_the_jax_packages(monkeypatch):
         t(pool)[None], t(x_test)[None], t(y_test)[None], n_train,
         ae_cfg=autoencoder.AeConfig(nodes=(32, 16), epochs=2), gan_cfg=cfg)
     assert next(ae_epochs, None) is None and next(draws, None) is None
-    assert errs[0] == pytest.approx(float(want_err))
     ae = jax_ae.train_autoencoder(k_ae, jnp.asarray(pool), ae_cfg)
     with torch.no_grad():
         enc = [autoencoder.encode(got["ae"], t(a)[None])[0].numpy()
                for a in (x_lab, pool, x_test)]
-    for a, e in zip((x_lab, pool, x_test), enc):
-        np.testing.assert_allclose(e, np.asarray(jax_ae.encode(ae, a)),
-                                   rtol=TOL, atol=TOL)
     err, aux = jax.jit(functools.partial(
         jax_gan._train_one, n_train=n_train, valid_dim=16, cfg=jcfg))(
             k_gan, enc[0], args[1], enc[1], enc[2], args[4])
-    assert errs[0] == pytest.approx(float(err))
-    want = _np(aux["params"])
+    return {
+        "errs": errs, "want_err": float(want_err), "jax_err": float(err),
+        "enc": enc,
+        "jax_enc": [np.asarray(jax_ae.encode(ae, a))
+                    for a in (x_lab, pool, x_test)],
+        "got": got, "want": _np(aux["params"]),
+        "port": gan.params_to_jax(got["params"]),
+        "f64": _gan_steps(gan_params, steps, enc, y_lab, cfg, torch.float64),
+        "f32": _gan_steps(gan_params, steps, enc, y_lab, cfg, torch.float32)}
+
+
+def test_ae_gan_fold_matches_the_jax_packages(monkeypatch):
+    """One fold through autoencoder.train_folds fed every draw of
+    autoencoder._train_one (the AE's initial parameters and permutations,
+    the GAN's parameters, batches and noise): the same test error; the
+    encodings within 1e-5 of the JAX autoencoder's; the JAX GAN run on the
+    port's encodings reads the same error; the port's GAN steps replayed in
+    float64 land on the JAX package's final discriminator and generator
+    with no entry outside the GAN trainer's tolerance; the fold's float32
+    parameters are that replay's float32 twin bit for bit, and its final
+    discriminator is held to the JAX package's at the bounds stated
+    below."""
+    r = ae_gan_fold(monkeypatch)
+    errs, got, enc, want = r["errs"], r["got"], r["enc"], r["want"]
+    f64, f32, port = r["f64"], r["f32"], r["port"]
+    assert errs[0] == pytest.approx(r["want_err"])
+    for e, w in zip(enc, r["jax_enc"]):
+        np.testing.assert_allclose(e, w, rtol=TOL, atol=TOL)
+    assert errs[0] == pytest.approx(r["jax_err"])
     # The GAN's steps replayed in float64: the port's algorithm, free of
     # its float32 rounding, lands on the JAX package's final discriminator
     # and generator with no entry outside the GAN trainer's tolerance
     # (atol 1e-5 / rtol 1e-4, tests/test_torch_train.py).
-    f64 = _gan_steps(gan_params, steps, enc, y_lab, cfg, torch.float64)
     n_out = sum(_outliers(f64[net][name][leaf][0], w)
                 for net in ("disc", "gen")
                 for name, leaves in want[net].items()
@@ -241,8 +262,6 @@ def test_ae_gan_fold_matches_the_jax_packages(monkeypatch):
     assert n_out == 0
     # The fold's own float32 run is that algorithm: the same steps replayed
     # in float32 give its final parameters bit for bit.
-    f32 = _gan_steps(gan_params, steps, enc, y_lab, cfg, torch.float32)
-    port = gan.params_to_jax(got["params"])
     for net in ("disc", "gen"):
         for name, leaves in port[net].items():
             for leaf, p in leaves.items():
@@ -262,7 +281,7 @@ def test_ae_gan_fold_matches_the_jax_packages(monkeypatch):
     want_logits, _ = jax_nets.discriminator_apply(want["disc"], enc[2])
     with torch.no_grad():
         logits, _ = nets.discriminator_apply(got["params"]["disc"],
-                                             t(enc[2])[None])
+                                             torch.tensor(enc[2])[None])
     np.testing.assert_allclose(logits[0].numpy(), np.asarray(want_logits),
                                rtol=0, atol=DISC_F32_LOGITS)
 

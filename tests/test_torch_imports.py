@@ -24,6 +24,12 @@ print("imported", len(sys.argv) - 1)
 """
 
 
+# the live collection entry point and its stack
+ACQUISITION = ("acquisition", "acquisition.bus", "acquisition.serialdev",
+               "acquisition.publishers", "acquisition.controller",
+               "acquisition.collect", "cli.collect")
+
+
 def _port_modules():
     names = [mrgan_tpu_torch.__name__]
     for info in pkgutil.walk_packages(mrgan_tpu_torch.__path__,
@@ -45,7 +51,7 @@ def test_port_imports_without_jax():
                  "variants.autoencoder", "cli.autoencoder",
                  "variants.activation_maps", "cli.activation_map",
                  "data.preprocess", "cli.preprocess", "data.py2pickle",
-                 "ops.resample"):
+                 "ops.resample", *ACQUISITION):
         assert "mrgan_tpu_torch." + name in names
     proc = subprocess.run(
         [sys.executable, "-c", _CHILD, *names], cwd=ROOT,
@@ -79,3 +85,15 @@ def test_port_sources_name_no_jax():
         for word in ("import jax", "from jax", "sklearn", "orbax",
                      "mrgan_tpu."):
             assert word not in src, (path, word)
+
+
+def test_collection_stack_imports_without_jax():
+    """The collection CLI and the acquisition stack alone, in a process where
+    JAX, scikit-learn, orbax and the JAX package cannot be imported."""
+    names = ["mrgan_tpu_torch." + n for n in ACQUISITION]
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD, *names], cwd=ROOT,
+        capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": ROOT})
+    assert proc.returncode == 0, proc.stderr
+    assert "imported %d" % len(names) in proc.stdout
