@@ -140,10 +140,36 @@ Phases (any failure raises and the script exits non-zero):
     a poke, their logits within the classifier's Lipschitz bound of their
     log-mel gap from the HIGHEST ones (that gap within 0.1 dB); the
     per-poke classification latency from CUDA events and the wall time.
+26. bf16 weight shadows (``matmul_weight_dtype="bfloat16"``): a recorded
+    step of phase 8's set (its 18 weight reads bit for bit the masters'
+    bf16 round, its 9 weight gradients bf16), then phase 8's cell with
+    shadows, in a process of its own, held to phase 8's errors at the
+    DP-parity bars.
+27. Two gloo ranks sharing the card (spawned, a file store under
+    ``build/chip_smoke/``), run beside phase 26's cell while this process
+    runs phases 20-23 and 12c (24-25, which time a kernel and a poke, run
+    first) and the rest: (a) phase 8's cell through the sweep route (folds 3 + 3) held
+    to phase 8 at the DP-parity bars, whether bit for bit printed; (b) the
+    data-parallel step, 25 rows a rank, fed one process's draws: the first
+    update within 3e-4 (float32 weights) / 3e-3 (shadows), its losses
+    1e-5, the tenth printed; then the cell at ``DP_EPOCHS`` held as one
+    more draw of one process's fold layouts at that depth (the DP-parity
+    verdict against one launch printed); (c) ``logmel_sharded`` over phase
+    3's 72-window request (padded to 20 frames) and the 512 x 1 s block,
+    each rank's block through the mel kernel, within 0.02 dB of
+    ``frontend_logmel``; (d) the TP pair at 3,632 -> 1,000 -> 500 within
+    1e-5 of the dense pair; (e) ``torch.distributed.run --nproc-per-node
+    2`` of the table CLI (modality 5, 10 pokes, 1 epoch): rank 0 prints
+    phase 7's lines (numbers aside), rank 1 nothing, the checkpoint once.
+28. NCCL at world size 1: the sweep and data-parallel entry points return
+    one process's cell bit for bit (1 epoch); rank 1 of 2 is refused
+    cuda:1; two NCCL ranks on cuda:0 raise at their first collective.
 
 The kernel counts are set to 0 just before each path is driven (phase 4,
-then phases 6-7, phase 9's request, each path of phases 12-15, 17-18 and
-19-25) and read just after; the JSON line's ``launches`` is their sum.
+then phases 6-7, phase 9's request, each path of phases 12-15, 17-18,
+19-25 and 27; the ranks of phase 27 count in their own processes and
+return their counts) and read just after; the JSON line's ``launches`` is
+their sum.
 Phases 19, 20, 22 and 23 launch neither kernel, and check that they do
 not. Launches made to compare a kernel with its plain version or to time
 it are not counted.
@@ -579,6 +605,7 @@ def entry_point(dev_name, epochs=2, pokes=100):
     assert all(0.0 <= e <= 1.0 for e in errs), errs
     print("phase 7: gan_main %s: 7 cells x 6 folds, wall %.3f s"
           % (" ".join(argv), wall))
+    return lines
 
 
 def reference_errors(path=REFERENCE, model="gan", table=1, percent=100):
@@ -591,14 +618,15 @@ def reference_errors(path=REFERENCE, model="gan", table=1, percent=100):
     raise KeyError("no cell %s in %s" % (cell, path))
 
 
-def hold_to_reference(name, errs, want, fold_bar, mean_bar):
+def hold_to_reference(name, errs, want, fold_bar, mean_bar,
+                      ref_name="JAX package"):
     """Print and check per-fold errors against a recorded cell."""
     delta = errs - want
-    print("%s: port %s, JAX package %s; mean %.4f vs %.4f, worst |delta| "
-          "%.4f (bar %g), |mean delta| %.2f points (bar %s)" % (
-              name, np.round(errs, 4).tolist(), np.round(want, 4).tolist(),
-              errs.mean(), want.mean(), np.abs(delta).max(), fold_bar,
-              100 * abs(delta.mean()),
+    print("%s: port %s, %s %s; mean %.4f vs %.4f, worst |delta| %.4f (bar "
+          "%g), |mean delta| %.2f points (bar %s)" % (
+              name, np.round(errs, 4).tolist(), ref_name,
+              np.round(want, 4).tolist(), errs.mean(), want.mean(),
+              np.abs(delta).max(), fold_bar, 100 * abs(delta.mean()),
               "none" if mean_bar is None else "%.1f" % (100 * mean_bar)))
     assert np.isfinite(errs).all() and errs.shape == want.shape, errs
     assert np.abs(delta).max() <= fold_bar, delta
@@ -1419,7 +1447,7 @@ def below_chance(name, errs):
     assert errs.max() <= CHANCE_ERROR - LEARNED_MARGIN, (name, errs)
 
 
-def seed_distribution(name, errs, ref):
+def seed_distribution(name, errs, ref, what="the record's %d seeds"):
     """The cell as one more draw of the record's seeds: its mean error
     inside the 99 % prediction interval of the recorded seeds' means (mean
     +- t(0.995, n - 1) * sd * sqrt(1 + 1 / n)), every fold inside the
@@ -1429,11 +1457,12 @@ def seed_distribution(name, errs, ref):
     half = T_995[n - 1] * means.std(ddof=1) * math.sqrt(1 + 1 / n)
     folds = np.concatenate(list(ref.values()))
     lo, hi = folds.min() - FOLD_DELTA, folds.max() + FOLD_DELTA
-    print("%s: held to the record's %d seeds: mean %.4f vs their %.4f (sd "
-          "%.4f), bar +-%.4f (99 %% prediction interval); folds %.4f-%.4f "
-          "vs the record's %.4f-%.4f, bar %.4f-%.4f" % (
-              name, n, errs.mean(), means.mean(), means.std(ddof=1), half,
-              errs.min(), errs.max(), folds.min(), folds.max(), lo, hi))
+    print("%s: held to %s: mean %.4f vs their %.4f (sd %.4f), bar +-%.4f "
+          "(99 %% prediction interval); folds %.4f-%.4f vs theirs "
+          "%.4f-%.4f, bar %.4f-%.4f" % (
+              name, what % n, errs.mean(), means.mean(), means.std(ddof=1),
+              half, errs.min(), errs.max(), folds.min(), folds.max(), lo,
+              hi))
     assert abs(errs.mean() - means.mean()) <= half, (name, errs, means)
     assert lo <= errs.min() and errs.max() <= hi, (name, errs, lo, hi)
 
@@ -2439,6 +2468,595 @@ def high_phase(dev, windows, sms, x_highest):
     return launches, db_err, timing, bounds
 
 
+# -- phases 26-28: the bf16 shadows and the multi-rank paths -----------------
+
+MULTI_WORLD = 2          # ranks sharing the one card (gloo)
+DP_EPOCHS = 5            # phase 27(b)'s depth: 10 put the script at 1,020 s
+                         # (PERF.md, PR 9), above the 1,000 s aimed at
+DP_CHECK_UPDATES = 10
+# the first update's bars (tests/test_parallel.py:133, :166); later
+# updates are printed, and the cell held: float32 reduction order grows to
+# the losses' first digit within 10 updates at the flagship width (Adam's
+# normalisation turns a rounding difference of a near-zero gradient into
+# up to lr a step), on one process as across ranks
+DP_CHECK_ATOL = {"float32": 3e-4, "bfloat16": 3e-3}
+DP_LOSS_ATOL = 1e-5
+TP_ATOL = 1e-5
+RANK_TIMEOUT_S = 900
+
+
+def shadow_step(ds):
+    """Phase 26's recorded step (``matmul_weight_dtype="bfloat16"``): every
+    forward's weights the bf16 round of the masters, bit for bit, and the
+    weight gradients bf16."""
+    cfg = gan.GanConfig(matmul_weight_dtype="bfloat16")
+    lab, pool, train, test = fold_tensors(ds, 100)
+    data = gan.scale_folds(ds.X, ds.y, lab, pool, train, test)
+    generator = rng_util.make_generator(0, ds.X.device)
+    state = gan.init_state(gan.init_params(generator, ds.X.shape[1], cfg, 6),
+                           cfg)
+    li, ui, u2i = gan.epoch_schedule(generator, 6, lab.shape[1],
+                                     pool.shape[1], train.shape[1],
+                                     cfg.batch_size)
+    rand = gan.draw_step(generator, 6, cfg.batch_size, ds.X.shape[1], cfg)
+    seen, grads = [], []
+    real_dense, real_update = nets.dense, optim.update
+
+    def dense(p, x):
+        seen.append(p["w"])
+        return real_dense(p, x)
+
+    def update(g, *a, **k):
+        grads.append(g)
+        return real_update(g, *a, **k)
+
+    nets.dense, optim.update = dense, update
+    try:
+        new, _ = gan.train_step(state, data, li[:, 0], ui[:, 0], u2i[:, 0],
+                                rand, cfg=cfg)
+    finally:
+        nets.dense, optim.update = real_dense, real_update
+    gen_w = [state["gen"][k]["w"] for k in ("d1", "d2", "d3")]
+    disc_order = ["d0", "d1", "d2", "d3", "mid", "out"]
+    want = (gen_w + [state["disc"][k]["w"] for k in disc_order] + gen_w
+            + [new["disc"][k]["w"] for k in disc_order])
+    assert len(seen) == len(want) == 18, len(seen)
+    exact = all(s.dtype == torch.bfloat16 and torch.equal(s, w.bfloat16())
+                for s, w in zip(seen, want))
+    assert exact, "a forward read other weights than the masters' bf16 round"
+    grad_w = [leaf for g in grads
+              for path, leaf in zip(tree_paths(g), tree.leaves(g))
+              if path[-1] == "w"]
+    assert len(grads) == 2 and len(grad_w) == 9
+    assert all(g.dtype == torch.bfloat16 for g in grad_w)
+    print("phase 26: recorded step: 18 forward weight reads, each the bf16 "
+          "round of its master bit for bit (gen d1-d3, disc d0-out, gen, the "
+          "updated disc); %d weight gradients, all bfloat16" % len(grad_w))
+
+
+def shadow_role(rank, world, init, data_path, arg):
+    """Phase 26's cell, in a process of its own beside phase 27's ranks:
+    phase 8's cell with bf16 weight shadows. ``arg``: (device, epochs)."""
+    device, epochs = arg
+    ds = _dataset(data_path, torch.device(device))
+    t0 = time.perf_counter()
+    errs = protocol.run_gan_cell(
+        ds, percentlabeled=100, cfg=gan.GanConfig(
+            matmul_weight_dtype="bfloat16", epochs=epochs), seed=0)
+    return {"errors": errs, "wall": time.perf_counter() - t0}
+
+
+def shadow_cell_check(out, f32_errs, epochs=100):
+    """Phase 26's cell held to phase 8's float32 cell at the DP-parity
+    bars, and printed beside the JAX record (made with shadows)."""
+    errs = np.asarray(out["errors"])
+    hold_to_reference(
+        "phase 26: shadows, modality 5, 100 %% labels, %d epochs, seed 0 vs "
+        "phase 8's float32 cell (wall %.3f s, in its own process beside "
+        "phase 27's ranks)" % (epochs, out["wall"]), errs, f32_errs,
+        FOLD_DELTA, MEAN_DELTA, "float32")
+    want_jax = reference_errors()
+    print("phase 26: beside the JAX record (its default, bf16 shadows): "
+          "worst |delta| %.4f, |mean delta| %.2f points" % (
+              np.abs(errs - want_jax).max(),
+              100 * abs((errs - want_jax).mean())))
+
+
+def _rank_main(role, rank, world, init, out_path, data_path, arg):
+    """A spawned rank of phase 27 or 28 (gloo or NCCL): runs ``role`` and
+    pickles ("ok", result) or ("error", traceback) to ``out_path``."""
+    import traceback
+
+    import torch.distributed as dist
+
+    torch.set_num_threads(2)
+    try:
+        numeric.set_fp32_policy()
+        result = _ROLES[role](rank, world, init, data_path, arg)
+        status = ("ok", result)
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        status = ("error", traceback.format_exc())
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(out_path, "wb") as f:
+        pickle.dump(status, f)
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _dataset(data_path, dev):
+    arrays = np.load(data_path)
+    return protocol.DeviceDataset(torch.from_numpy(arrays["x"]).to(dev),
+                                  torch.from_numpy(arrays["y"]).to(dev),
+                                  device=dev)
+
+
+def _gloo(rank, world, init, device):
+    from mrgan_tpu_torch.parallel import multihost
+
+    multihost.initialize(init_method=init, world_size=world, rank=rank,
+                         backend="gloo")
+    return torch.device(device)
+
+
+def collectives_on_cuda(dev):
+    """All-reduce SUM and MAX and all-gather of CUDA tensors under gloo."""
+    import torch.distributed as dist
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    a = torch.full((4,), float(r + 1), device=dev)
+    dist.all_reduce(a)
+    b = torch.full((4,), float(r + 1), device=dev)
+    dist.all_reduce(b, op=dist.ReduceOp.MAX)
+    got = [torch.empty(2, device=dev) for _ in range(n)]
+    dist.all_gather(got, torch.full((2,), float(r), device=dev))
+    assert a.device == b.device == got[0].device == dev
+    assert a.tolist() == [n * (n + 1) / 2] * 4 and b.tolist() == [float(n)] * 4
+    assert [g.tolist() for g in got] == [[float(i)] * 2 for i in range(n)]
+    return "all-reduce SUM, all-reduce MAX, all-gather of %s tensors" % dev
+
+
+def sweep_role(rank, world, init, data_path, arg):
+    """Phase 27(a): the phase-8 cell through the sweep route, folds 3 + 3,
+    at ``epochs``; then 27(c) and 27(d). ``arg``: (device, epochs)."""
+    from mrgan_tpu_torch.parallel import mesh as mesh_lib
+
+    device, epochs = arg
+    dev = _gloo(rank, world, init, device)
+    out = {"collectives": collectives_on_cuda(dev)}
+    ds = _dataset(data_path, dev)
+    mesh = mesh_lib.make_mesh(device=dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    out["errors"] = protocol.run_gan_cell(
+        ds, percentlabeled=100, cfg=gan.GanConfig(epochs=epochs), seed=0,
+        mesh=mesh)
+    out["wall"] = time.perf_counter() - t0
+    out["logmel"] = sharded_logmel_rank(dev)
+    out["tp"] = tp_rank(dev)
+    return out
+
+
+def _state_gap(a, b):
+    """The largest |a - b| over each part of two training states."""
+    gap = {}
+    for k in ("gen", "disc", "opt_d", "opt_g"):
+        pick = (lambda st: st[k]) if k in ("gen", "disc") else (
+            lambda st: {"m": st[k]["m"], "v": st[k]["v"]})
+        gap[k] = max((x.float() - y.float()).abs().max().item()
+                     for x, y in zip(tree.leaves(pick(a)), tree.leaves(pick(b))))
+    return gap
+
+
+def dp_role(rank, world, init, data_path, arg):
+    """Phase 27(b): updates fed one process's draws against one process, in
+    both weight regimes (the state after the first update and after
+    DP_CHECK_UPDATES, and every update's losses); then the cell at
+    ``epochs`` through the DP route (25 rows a rank). ``arg``: (device,
+    epochs)."""
+    from mrgan_tpu_torch.parallel import mesh as mesh_lib
+    from mrgan_tpu_torch.parallel import spmd
+
+    device, epochs = arg
+    dev = _gloo(rank, world, init, device)
+    ds = _dataset(data_path, dev)
+    mesh = mesh_lib.make_mesh(n_cell=1, n_data=world, device=dev)
+    out = {"updates": {}}
+    lab, pool, train, test = fold_tensors(ds, 100)
+    data = gan.scale_folds(ds.X, ds.y, lab, pool, train, test)
+    rr = torch.arange(6, device=dev)[:, None]
+    for wd in ("float32", "bfloat16"):
+        cfg = gan.GanConfig(matmul_weight_dtype=wd)
+        generator = rng_util.make_generator(0, dev)
+        params = gan.init_params(generator, ds.X.shape[1], cfg, 6)
+        li, ui, u2i = gan.epoch_schedule(generator, 6, lab.shape[1],
+                                         pool.shape[1], train.shape[1],
+                                         cfg.batch_size)
+        rows = gan.local_rows(cfg.batch_size, mesh.data_group)
+        single = dp = gan.init_state(params, cfg)
+        loss_gaps, gaps = [], []
+        t0 = time.perf_counter()
+        for b in range(DP_CHECK_UPDATES):
+            rand = gan.draw_step(generator, 6, cfg.batch_size, ds.X.shape[1],
+                                 cfg)
+            single, want = gan.train_step(single, data, li[:, b], ui[:, b],
+                                          u2i[:, b], rand, cfg=cfg)
+            local = gan.local_draws(rand, slice(None), rows, cfg.batch_size)
+            dp, got = spmd.dp_batch_step(
+                dp, data["x_labeled"][rr, li[:, b, rows]],
+                data["y_labeled"][rr, li[:, b, rows]],
+                data["pool"][rr, ui[:, b, rows]],
+                data["pool"][rr, u2i[:, b, rows]], local, cfg=cfg,
+                group=mesh.data_group)
+            loss_gaps.append(max((g - w).abs().max().item()
+                                 for g, w in zip(got, want)))
+            if b in (0, DP_CHECK_UPDATES - 1):
+                gaps.append(_state_gap(single, dp))
+        _sync(dev)
+        out["updates"][wd] = (gaps, loss_gaps, time.perf_counter() - t0)
+    _sync(dev)
+    t0 = time.perf_counter()
+    out["errors"] = protocol.run_gan_cell(
+        ds, percentlabeled=100, cfg=gan.GanConfig(epochs=epochs), seed=0,
+        mesh=mesh)
+    out["wall"] = time.perf_counter() - t0
+    return out
+
+
+def sharded_audio():
+    """Phase 27(c)'s inputs: phase 3's 72-window request, zero-padded from
+    9,600 to 9,728 samples (19 frames do not split in 2; 20 do), and the
+    512 x 1 s block (94 frames)."""
+    request = request_windows(72, seed=0)["contact"]
+    request = np.pad(request, ((0, 0), (0, 9728 - AUDIO_LEN)))
+    block = (np.random.RandomState(2).randn(512, 48000) * 100).astype(
+        np.float32)
+    return {"request 72 x 9,728": request, "block 512 x 48,000": block}
+
+
+def sharded_logmel_rank(dev):
+    """Phase 27(c) on a rank: ``logmel_sharded`` over the data axis of a
+    (1, 2) mesh; its blocks and the mel kernel's launches."""
+    from mrgan_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh = mesh_lib.make_mesh(n_cell=1, n_data=MULTI_WORLD, device=dev)
+    out = {}
+    for name, audio in sharded_audio().items():
+        mel_cuda.launches = 0
+        block = mel.logmel_sharded(torch.from_numpy(audio).to(dev), mesh)
+        out[name] = (block.cpu().numpy(), mel_cuda.launches)
+    return out
+
+
+def tp_rank(dev):
+    """Phase 27(d) on a rank: the TP block at the discriminator's first
+    pair (3,632 -> 1,000 -> 500) against the dense pair."""
+    from mrgan_tpu_torch.parallel import tensor
+
+    g = torch.Generator().manual_seed(3)
+    w1 = nets.glorot_uniform(g, (3632, 1000)).to(dev)
+    w2 = nets.glorot_uniform(g, (1000, 500)).to(dev)
+    b1 = (0.1 * torch.randn(1000, generator=g)).to(dev)
+    b2 = (0.1 * torch.randn(500, generator=g)).to(dev)
+    x = torch.randn(150, 3632, generator=g).to(dev)
+    shards, b2_rep = tensor.shard_dense_pair(w1, b1, w2, b2, MULTI_WORLD)
+    got = tensor.make_tp_mlp_block()(shards, b2_rep, x)
+    want = torch.relu(x @ w1 + b1) @ w2 + b2
+    return (got - want).abs().max().item()
+
+
+def nccl_role(rank, world, init, data_path, arg):
+    """Phase 28: NCCL at world size 1: the sweep and DP entry points return
+    the single process's cell bit for bit (1 epoch); then a second rank of
+    a world of 2 is refused its card (cuda:1)."""
+    import torch.distributed as dist
+
+    from mrgan_tpu_torch.parallel import mesh as mesh_lib
+    from mrgan_tpu_torch.parallel import multihost, spmd, sweep
+
+    assert multihost.initialize(init_method=init, world_size=1, rank=0,
+                                backend="nccl", local_rank=0)
+    dev = multihost.local_device()
+    ds = _dataset(data_path, dev)
+    mesh = mesh_lib.make_mesh(device=dev)
+    assert dist.get_backend() == "nccl" and mesh.shape == {"cell": 1,
+                                                           "data": 1}
+    idx = [t.cpu().numpy() for t in fold_tensors(ds, 100)]
+    cfg = gan.GanConfig(epochs=1)
+
+    def run(fn, **kw):
+        return fn(rng_util.make_generator(0, dev), ds.X, ds.y, *idx,
+                  valid_dim=ds.valid_dim, cfg=cfg, **kw)
+
+    out = {"single": run(gan.train_folds_indexed),
+           "sweep": run(sweep.train_gan_work_indexed, mesh=mesh),
+           "dp": run(spmd.train_gan_cell_dp, mesh=mesh)}
+    dist.destroy_process_group()
+    try:
+        multihost.initialize(init_method=init + "-2", world_size=2, rank=1,
+                             backend="nccl", local_rank=1)
+        out["second_rank"] = None
+    except RuntimeError as e:
+        out["second_rank"] = str(e)
+    return out
+
+
+def shared_card_role(rank, world, init, data_path, arg):
+    """Phase 28: two NCCL ranks both on cuda:0: the first collective must
+    raise (NCCL takes one card a rank), never run on gloo."""
+    import torch.distributed as dist
+
+    from mrgan_tpu_torch.parallel import multihost
+
+    multihost.initialize(init_method=init, world_size=world, rank=rank,
+                         backend="nccl", local_rank=0, timeout_s=60)
+    assert dist.get_backend() == "nccl"
+    t = torch.ones(4, device="cuda:0")
+    try:
+        dist.all_reduce(t)
+        _sync(dev)
+    except Exception as e:  # noqa: BLE001 — the expected refusal
+        return "raised %s: %s" % (type(e).__name__, str(e).splitlines()[0])
+    return None
+
+
+_ROLES = {"sweep": sweep_role, "dp": dp_role, "nccl": nccl_role,
+          "shared_card": shared_card_role, "shadow": shadow_role}
+
+
+def start_ranks(role, world, data_path, arg=None, tag=None):
+    """Spawn ``world`` ranks of ``role`` (a file store under OUT_DIR for
+    the rendezvous); returns a handle for :func:`join_ranks`."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    tag = tag or role
+    store = OUT_DIR / ("store_" + tag)
+    for p in (store, Path(str(store) + "-2")):
+        if p.exists():
+            p.unlink()
+    outs = [OUT_DIR / ("%s_rank%d.pkl" % (tag, r)) for r in range(world)]
+    for o in outs:
+        if o.exists():
+            o.unlink()
+    procs = [ctx.Process(target=_rank_main, args=(
+        role, r, world, "file://%s" % store, str(o), str(data_path), arg))
+        for r, o in enumerate(outs)]
+    for p in procs:
+        p.start()
+    return procs, outs, time.perf_counter()
+
+
+def join_ranks(handle, timeout=RANK_TIMEOUT_S, allow_hang=False):
+    """Every rank's result, or raise with the first failing rank's
+    traceback; a rank still running at the timeout is killed."""
+    procs, outs, t0 = handle
+    hung = []
+    for r, p in enumerate(procs):
+        p.join(max(1.0, timeout - (time.perf_counter() - t0)))
+        if p.is_alive():
+            p.kill()
+            p.join()
+            hung.append(r)
+    if hung and not allow_hang:
+        raise RuntimeError("ranks %s still running after %d s" % (hung,
+                                                                   timeout))
+    results = []
+    for r, o in enumerate(outs):
+        if r in hung:
+            results.append("hung: killed after %d s" % timeout)
+            continue
+        with open(o, "rb") as f:
+            status, value = pickle.load(f)
+        if status != "ok":
+            raise RuntimeError("rank %d failed:\n%s" % (r, value))
+        results.append(value)
+    return results, time.perf_counter() - t0
+
+
+def same_bits_np(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and np.array_equal(a.view(np.uint8),
+                                                 b.view(np.uint8))
+
+
+def sweep_checks(dev, sweep_out, f32_errs, sweep_epochs=100):
+    """Phases 27(a), (c) and (d) from the sweep ranks' results. Returns the
+    mel kernel's launches of 27(c) (both ranks)."""
+    for r, out in enumerate(sweep_out):
+        print("phase 27: rank %d: %s" % (r, out["collectives"]))
+    errs = np.asarray(sweep_out[0]["errors"])
+    assert same_bits_np(errs, sweep_out[1]["errors"]), "ranks disagree"
+    hold_to_reference(
+        "phase 27(a): sweep, 2 gloo ranks on the card (folds 3 + 3), %d "
+        "epochs, seed 0 vs phase 8's single-process cell (wall %.3f s)"
+        % (sweep_epochs, sweep_out[0]["wall"]), errs, f32_errs, FOLD_DELTA,
+        MEAN_DELTA, "one process")
+    print("phase 27(a): bit for bit phase 8's: %s; largest fold difference "
+          "%r" % (same_bits_np(errs, f32_errs),
+                  float(np.abs(errs - f32_errs).max())))
+    launches = 0
+    for name, audio in sharded_audio().items():
+        want = mel.frontend_logmel(torch.from_numpy(audio).to(dev),
+                                   flatten=False)
+        got = np.concatenate([out["logmel"][name][0] for out in sweep_out],
+                             axis=-1)
+        counts = [out["logmel"][name][1] for out in sweep_out]
+        err = float(np.abs(got - want.cpu().numpy()).max())
+        print("phase 27(c): logmel_sharded %s over 2 ranks: %s -> blocks of "
+              "%d frames, max_abs_err_db vs frontend_logmel %r (bar %g); mel "
+              "kernel launches per rank %s" % (
+                  name, tuple(audio.shape), got.shape[-1] // 2, err, DB_ATOL,
+                  counts))
+        assert got.shape == tuple(want.shape) and err <= DB_ATOL, err
+        assert all(c == int(dev.type == "cuda") for c in counts), counts
+        launches += sum(counts)
+    tp = [out["tp"] for out in sweep_out]
+    print("phase 27(d): TP block 3,632 -> 1,000 -> 500 over 2 ranks vs the "
+          "dense pair: max_abs_err %s (bar %g)" % (tp, TP_ATOL))
+    assert max(tp) <= TP_ATOL, tp
+    return launches
+
+
+LAYOUTS = ((6,), (3, 3), (2, 2, 2), (4, 2))  # launches of one process
+
+
+def one_process_layouts(ds, epochs, layouts=LAYOUTS):
+    """Phase 8's cell at ``epochs`` on one process, its folds trained in
+    each of ``layouts`` (launches of so many folds, each on its draws of
+    the launch of 6): float32 rounding is all that differs, the spread a
+    correct data-parallel cell sits in at a depth where the cell has not
+    converged. Returns {layout: (6,) errors}."""
+    rng = np.random.RandomState(0)
+    splits = protocol.stratified_splits(ds.y_host, 6, seed=0)
+    idx = [np.stack(a) for a in zip(*(
+        protocol.fold_indices(ds.y_host, tr, te, 100, None, 6, rng)
+        for tr, te in splits))]
+    seed = rng.randint(2**31 - 1)
+    cfg = gan.GanConfig(epochs=epochs)
+    out = {}
+    for layout in layouts:
+        starts = np.cumsum((0,) + layout)
+        out[layout] = np.concatenate([gan.train_folds_indexed(
+            rng_util.make_generator(seed, ds.X.device), ds.X, ds.y, *idx,
+            valid_dim=ds.valid_dim, cfg=cfg, folds=slice(s, e))
+            for s, e in zip(starts[:-1], starts[1:])])
+    return out
+
+
+def dp_checks(dp_out, layouts, dp_epochs=DP_EPOCHS):
+    """Phase 27(b) from the data-parallel ranks' results: the first update
+    at the JAX test's bars; the cell as one more draw of one process's
+    layouts at the same depth, with the DP-parity verdict against the
+    one-launch run printed."""
+    for wd, atol in DP_CHECK_ATOL.items():
+        for r, out in enumerate(dp_out):
+            (first, last), loss_gaps, wall = out["updates"][wd]
+            print("phase 27(b): rank %d, %s weights, updates on 25 rows a "
+                  "rank fed one process's draws, largest |delta| after 1 / "
+                  "%d: gen %.3g / %.3g, disc %.3g / %.3g, Adam disc %.3g / "
+                  "%.3g, gen %.3g / %.3g (the first update's bar %g); losses "
+                  "of each update %s (the first's bar %g); %.3f s" % (
+                      r, wd, DP_CHECK_UPDATES, first["gen"], last["gen"],
+                      first["disc"], last["disc"], first["opt_d"],
+                      last["opt_d"], first["opt_g"], last["opt_g"], atol,
+                      ["%.2g" % v for v in loss_gaps], DP_LOSS_ATOL, wall))
+            assert max(first.values()) <= atol, (wd, first)
+            assert loss_gaps[0] <= DP_LOSS_ATOL, (wd, loss_gaps)
+    dp_errs = np.asarray(dp_out[0]["errors"])
+    assert same_bits_np(dp_errs, dp_out[1]["errors"]), "ranks disagree"
+    runs = list(layouts.values())
+    gap = max(float(np.abs(a - b).max()) for i, a in enumerate(runs)
+              for b in runs[i + 1:])
+    print("phase 27(b): one process at %d epochs, folds in launches of %s: "
+          "%s; the largest fold gap between two layouts %.4f (the DP-parity "
+          "fold bar %g)" % (dp_epochs, [list(l) for l in layouts],
+                            [np.round(e, 4).tolist() for e in runs], gap,
+                            FOLD_DELTA))
+    delta = dp_errs - runs[0]
+    inside = (np.abs(delta).max() <= FOLD_DELTA
+              and abs(delta.mean()) <= MEAN_DELTA)
+    print("phase 27(b): data-parallel cell, 2 gloo ranks on the card (25 "
+          "rows a rank), %d epochs, seed 0: %s vs one process's one launch "
+          "%s: worst |delta| %.4f, |mean delta| %.2f points: %s the "
+          "DP-parity bars (printed; held below as one more layout) (wall "
+          "%.3f s, %.3f s an epoch)" % (
+              dp_epochs, np.round(dp_errs, 4).tolist(),
+              np.round(runs[0], 4).tolist(), np.abs(delta).max(),
+              100 * abs(delta.mean()), "inside" if inside else "OUTSIDE",
+              dp_out[0]["wall"], dp_out[0]["wall"] / dp_epochs))
+    seed_distribution("phase 27(b): the data-parallel cell", dp_errs,
+                      layouts, "one process's %d fold layouts")
+
+
+def tables_rank_main(argv):
+    """``python -m torch.distributed.run ... chip_smoke.py --tables-rank
+    DIR <cli.tables flags>``: one rank of phase 27(e); runs the table CLI's
+    entry point and writes its mel kernel launches to DIR."""
+    out_dir = Path(argv[0])
+    rank = int(os.environ["RANK"])
+    mel_cuda.launches = 0
+    tables.main(argv[1:])
+    (out_dir / ("rank%d.json" % rank)).write_text(json.dumps(
+        {"launches": mel_cuda.launches}))
+
+
+CLI_ARGV = ["--tables", "1", "--synthetic", "--synthetic-pokes",
+            str(SMOKE_POKES), "--epochs", "1", "--seed", "0", "--modalities",
+            "5", "--dist-backend", "gloo", "--device", "cuda"]
+
+
+def shape_of(line):
+    return re.sub(r"-?\d+(\.\d+)?(e-?\d+)?", "#", line)
+
+
+def multi_rank_cli(single_lines):
+    """Phase 27(e): the table CLI on 2 gloo ranks under
+    torch.distributed.run: rank 0 prints what one process prints (phase
+    7's lines, numbers aside), rank 1 nothing, the checkpoint is written
+    once. Returns the ranks' mel kernel launches."""
+    out_dir = OUT_DIR / "cli_ranks"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for old in out_dir.glob("*"):
+        old.unlink()
+    ckpt = out_dir / "cells.jsonl"
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    env["PYTHONPATH"] = str(ROOT)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(MULTI_WORLD), str(ROOT / "chip_smoke.py"),
+         "--tables-rank", str(out_dir), *CLI_ARGV, "--checkpoint",
+         str(ckpt)], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=600)
+    wall = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    lines = proc.stdout.splitlines()
+    assert [shape_of(l) for l in lines] == [shape_of(l)
+                                            for l in single_lines], (
+        len(lines), len(single_lines))
+    cells = [json.loads(l)["cell"] for l in ckpt.read_text().splitlines()]
+    assert len(cells) == 7 == len({json.dumps(c) for c in cells}), cells
+    counts = [json.loads((out_dir / ("rank%d.json" % r)).read_text())[
+        "launches"] for r in range(MULTI_WORLD)]
+    assert counts == [72, 72], counts
+    print("phase 27(e): torch.distributed.run --nproc-per-node %d cli.tables "
+          "%s: %d lines from rank 0, each in the format of phase 7's single "
+          "process (rank 1 prints nothing); checkpoint: %d cells, once; mel "
+          "kernel launches per rank %s; wall %.3f s" % (
+              MULTI_WORLD, " ".join(CLI_ARGV), len(lines), len(cells), counts,
+              wall))
+    return sum(counts)
+
+
+def nccl_phase(data_path):
+    """Phase 28: NCCL at world size 1 gives the single process's cell bit
+    for bit through the sweep and DP entry points; a second NCCL rank is
+    refused a card that does not exist, and two NCCL ranks on the one card
+    fail at their first collective, never falling back to gloo."""
+    (one,), wall = join_ranks(start_ranks("nccl", 1, data_path), timeout=300)
+    for route in ("sweep", "dp"):
+        same = same_bits_np(one[route], one["single"])
+        print("phase 28: NCCL, world 1: %s entry point %s vs one process %s: "
+              "bit for bit %s" % (route, np.round(one[route], 4).tolist(),
+                                  np.round(one["single"], 4).tolist(), same))
+        assert same, route
+    assert one["second_rank"] and "takes cuda:1" in one["second_rank"], one
+    print("phase 28: NCCL rank 1 of 2 refused: %s" % one["second_rank"])
+    pair, pair_wall = join_ranks(start_ranks("shared_card", 2, data_path),
+                                 timeout=180, allow_hang=True)
+    print("phase 28: two NCCL ranks on cuda:0: %s (%.1f s)" % (pair,
+                                                             pair_wall))
+    assert all(str(p).startswith("raised") for p in pair), pair
+    return wall + pair_wall
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; "
@@ -2601,7 +3219,7 @@ def main():
     x, y, synth, contact = training_set(dev)
     ds = protocol.DeviceDataset(x, y, device=dev)
     t_phase = {"6": time.perf_counter() - phase_t0}
-    entry_point("cuda")
+    phase7_lines = entry_point("cuda")
     train_launches = mel_cuda.launches
     t_phase["7"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
     print("training path: %d DFT kernel launches, %d bin-group sums (phases "
@@ -2620,7 +3238,6 @@ def main():
     t_phase["11"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
     table_launches = loo_full_scale(dev)  # the loader's memo still holds
     widest_table5_peak(dev)
-    table_launches += gan_tables_cli()
     t_phase["12"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
     mlp_phase(ds)
     t_phase["13"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
@@ -2655,6 +3272,27 @@ def main():
     # -- this slice: the reference's remaining research paths ----------------
     ae_gan_phase(dev)
     t_phase["19"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
+
+    # -- this slice: precision "high", the live collection entry point --------
+    # (run before phases 20-23, which share the card with phase 26-27's
+    # processes: 24 times the kernel, 25 a poke's latency)
+    high_24, high_db_err, high_timing, high_bounds = high_phase(
+        dev, win_dev, sms, x)
+    t_phase["24"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
+    collect_highest, collect_high = collect_phase(dev, clf_path)
+    t_phase["25"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
+
+    # -- this slice: the bf16 shadows and the multi-rank paths ---------------
+    # phase 26's cell and phase 27's ranks (the sweep, then 27(c)-(d); the
+    # data-parallel cell) run in processes of their own, side by side,
+    # while this one runs phases 20-23 and 12c, 26's recorded step, 27(b)'s
+    # one-process layouts, 27(e) and 28; each is checked as it ends
+    data_path = OUT_DIR / "modality5.npz"
+    np.savez(data_path, x=ds.X.cpu().numpy(), y=ds.y.cpu().numpy())
+    shadow_proc = start_ranks("shadow", 1, data_path, ("cuda:0", 100))
+    sweep_ranks = start_ranks("sweep", MULTI_WORLD, data_path, ("cuda:0", 100))
+    dp_ranks = start_ranks("dp", MULTI_WORLD, data_path,
+                           ("cuda:0", DP_EPOCHS))
     activation_phase(dev)
     t_phase["20"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
     api_launches = function_api_phase(dev)
@@ -2663,27 +3301,38 @@ def main():
     t_phase["22"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
     preprocess_phase(dev)
     t_phase["23"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
-
-    # -- this slice: precision "high", the live collection entry point --------
-    high_24, high_db_err, high_timing, high_bounds = high_phase(
-        dev, win_dev, sms, x)
-    t_phase["24"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
-    collect_highest, collect_high = collect_phase(dev, clf_path)
-    t_phase["25"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
+    table_launches += gan_tables_cli()
+    t_phase["12c"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
+    shadow_step(ds)
+    layouts = one_process_layouts(ds, DP_EPOCHS)
+    cli_launches = multi_rank_cli(phase7_lines)
+    nccl_phase(data_path)
+    (shadow_out,), shadow_wall = join_ranks(shadow_proc)
+    sweep_out, sweep_wall = join_ranks(sweep_ranks)
+    dp_out, dp_wall = join_ranks(dp_ranks)
+    print("phases 26-27: joined %.1f s (26's cell), %.1f s (the sweep ranks) "
+          "and %.1f s (the data-parallel ranks) after their spawn" % (
+              shadow_wall, sweep_wall, dp_wall))
+    shadow_cell_check(shadow_out, cell[0])
+    sharded_launches = sweep_checks(dev, sweep_out, cell[0])
+    dp_checks(dp_out, layouts)
+    t_phase["26-28"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
     print("phase wall times: %s s; the script so far %.1f s" % (
         ", ".join("%s %.1f" % kv for kv in t_phase.items()),
         time.perf_counter() - script_t0))
     total = (launches + train_launches + fit_launches + table_launches
-             + api_launches + collect_highest)
+             + api_launches + collect_highest + sharded_launches
+             + cli_launches)
     high_total = high_24 + collect_high
     print("kernel launches on the driven paths: mel_power: serving %d, "
           "training (phases 6-7) %d, phase 9 %d, phases 12-15 %d, phase 21 "
-          "%d, phase 25 %d: %d; mel_power_high: phase 24 %d, phase 25 %d: "
-          "%d; lstm_scan_fwd / lstm_scan_bwd (phases 17-18): %d / %d; "
-          "phases 19, 20, 22 and 23 launch neither kernel" % (
+          "%d, phase 25 %d, phase 27(c) %d, phase 27(e) %d: %d; "
+          "mel_power_high: phase 24 %d, phase 25 %d: %d; lstm_scan_fwd / "
+          "lstm_scan_bwd (phases 17-18): %d / %d; phases 19, 20, 22 and 23 "
+          "launch neither kernel" % (
               launches, train_launches, fit_launches, table_launches,
-              api_launches, collect_highest, total, high_24, collect_high,
-              high_total, *variant_launches))
+              api_launches, collect_highest, sharded_launches, cli_launches,
+              total, high_24, collect_high, high_total, *variant_launches))
 
     print(gpu_line())
     lstm_source = "mrgan_tpu_torch/csrc/lstm_scan.cu"
@@ -2727,4 +3376,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--tables-rank"]:
+        tables_rank_main(sys.argv[2:])
+    else:
+        main()

@@ -17,7 +17,11 @@ of ``csrc/svm_smo.cpp``), the loader (``data.mreo``) and the table CLIs
 biLSTM recurrence kernels of ``csrc/lstm_scan.cu``) with its random forest
 (``train.forest``); the autoencoder GAN, the activation maps, the function
 API ``train.protocol.mr_gan`` and offline preprocessing
-(``data.preprocess.run``, ``cli.preprocess``).
+(``data.preprocess.run``, ``cli.preprocess``); the live collection
+(``acquisition``, ``cli.collect``); and several ranks under
+``torch.distributed`` (``parallel``, ``ops.mel.logmel_sharded``) with
+the bf16 weight shadows (``train.optim.mm_shadow``) and profiling
+(``utils.profiling``).
 
 Nothing here imports JAX, scikit-learn, JAX's checkpoint library or the
 JAX package: the machine with the card has none of them.

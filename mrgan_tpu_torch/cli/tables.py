@@ -12,8 +12,22 @@ Port of ``mrgan_tpu/cli/tables.py``. It takes the same flags plus
     python -m mrgan_tpu_torch.cli.tables svm --tables 2 4 --deriv
 
 Every fold of a cell trains in one launch on the one device, and a
-leave-one-object-out block of 6 objects too; ``--no-mesh`` is accepted and
-changes nothing. ``--pad-min`` defaults to 0: the JAX package's 1280 works
+leave-one-object-out block of 6 objects too. Launched on several ranks,
+
+    python -m torch.distributed.run --nproc-per-node N \
+        -m mrgan_tpu_torch.cli.tables --tables 1 ... [--dist-backend gloo]
+
+each rank is a process: it starts the process group
+(``parallel.multihost.initialize``), and, unless ``--no-mesh``, the GAN and
+MLP cells split their folds (and leave-one-object-out blocks, N x 6 wide)
+over the ranks of a ("cell", "data") mesh with every rank on the cell axis
+(``parallel.sweep``). Every rank runs the same cells in the same order;
+rank 0 alone prints, writes ``--checkpoint`` and ``--metrics``; the SVM
+tables run on rank 0 (the SMO is on the host). ``--dist-backend`` is the
+one flag the JAX CLI lacks here: JAX has one controller for every device,
+the port one process a rank, and NCCL (the default, one card a rank,
+``cuda:LOCAL_RANK``) cannot put two ranks on one card where gloo can.
+``--pad-min`` defaults to 0: the JAX package's 1280 works
 around a TPU fault (``docs/NARROW_FAULT.md``) and the padding is inert. The
 SVM's dual solver defaults to the in-tree SMO (``--svm-solver native``);
 ``libsvm`` needs scikit-learn. Two faults of the original are not copied:
@@ -24,18 +38,23 @@ failed cell.
 """
 
 import argparse
+import contextlib
+import os
 import sys
 import time
 
 import numpy as np
-import torch
+import torch.distributed as dist
 
 from .. import MODALITY_NAMES
 from ..data import mreo
+from ..parallel import mesh as mesh_lib
+from ..parallel import multihost
 from ..train import gan, mlp, protocol, svm
 from ..utils import checkpoint as ckpt_lib
 from ..utils import device as device_lib
 from ..utils import metrics as M
+from ..utils import profiling
 from ..utils import stamp as stamp_lib
 
 PERCENTS_KFOLD = [1, 2, 4, 8, 16, 50, 100]   # mr_gan.py:251
@@ -68,8 +87,15 @@ def build_parser(description):
                         help="JSONL sweep checkpoint; completed cells skip")
     parser.add_argument("--metrics", default=None, help="JSONL metric stream")
     parser.add_argument("--no-mesh", action="store_true",
-                        help="Accepted for compatibility; the port runs on "
-                             "one device")
+                        help="Disable multi-device sharding: under "
+                             "torch.distributed.run every rank then runs "
+                             "alone")
+    parser.add_argument("--dist-backend", choices=multihost.BACKENDS,
+                        default="nccl",
+                        help="torch.distributed backend of a multi-rank "
+                             "launch: nccl (default; one card a rank, "
+                             "cuda:LOCAL_RANK) or gloo (CPU, or ranks "
+                             "sharing a card)")
     parser.add_argument("--modalities", type=int, nargs="+", default=None,
                         help="Subset of modality indices for the sweeps "
                              "(default: each table's reference grid)")
@@ -95,15 +121,33 @@ PROGRAMMING_ERRORS = (TypeError, ValueError, KeyError, AttributeError,
 
 
 class Ctx:
-    """Shared sweep context: device, dataset access, checkpoint, metrics.
-    ``deriv``: every dataset gets first-derivative traces (``svm_main
-    --deriv``)."""
+    """Shared sweep context: device, mesh, dataset access, checkpoint,
+    metrics. ``deriv``: every dataset gets first-derivative traces
+    (``svm_main --deriv``).
+
+    Under a multi-rank launch (and without ``--no-mesh``) it starts the
+    process group and builds the mesh; ranks other than 0 print nothing
+    and write neither the checkpoint nor the metric stream, but read the
+    checkpoint, so every rank skips the same cells."""
 
     def __init__(self, args, model_name, deriv=False):
         self.args = args
         self.model = model_name
         self.deriv = deriv
+        self.mesh = None
+        self.rank = 0
+        self._quiet = contextlib.ExitStack()
+        started = (not args.no_mesh
+                   and multihost.initialize(backend=args.dist_backend))
         self.device = device_lib.resolve(args.device)
+        if started:
+            self.rank = dist.get_rank()
+            self.device = multihost.local_device(self.device)
+            if dist.get_world_size() > 1:
+                self.mesh = mesh_lib.make_mesh(device=self.device)
+            if self.rank > 0:
+                self._quiet.enter_context(contextlib.redirect_stdout(
+                    self._quiet.enter_context(open(os.devnull, "w"))))
         if self.device.type == "cuda":
             device_lib.set_fp32_policy()
         self.seed = (np.random.randint(2**31 - 1)
@@ -114,7 +158,7 @@ class Ctx:
             synthetic_seed=self.seed if args.synthetic else None))
         self.ckpt = ckpt_lib.SweepCheckpoint(
             args.checkpoint, generator=self.stamp["generator"])
-        self.ms = M.MetricStream(args.metrics)
+        self.ms = M.MetricStream(args.metrics if self.rank == 0 else None)
         self.ms.emit("run_stamp", model=model_name, **self.stamp)
         self.failures = []
 
@@ -163,7 +207,7 @@ class Ctx:
         label = "cell:" + ",".join(f"{k}={v}" for k, v in sorted(key.items()))
         t0 = time.perf_counter()
         try:
-            with torch.profiler.record_function(label):
+            with profiling.annotate(label):
                 errors = [float(e) for e in fn()]
         except Exception as e:  # noqa: BLE001 — keep the sweep alive
             if self.args.strict or isinstance(e, PROGRAMMING_ERRORS):
@@ -172,7 +216,9 @@ class Ctx:
             return np.asarray([float("nan")])
         self.ms.emit("cell", model=self.model, **key, errors=errors,
                      wall_s=round(time.perf_counter() - t0, 3))
-        self.ckpt.record(errors, stamp=self.stamp, model=self.model, **key)
+        if self.rank == 0:
+            self.ckpt.record(errors, stamp=self.stamp, model=self.model,
+                             **key)
         return np.asarray(errors)
 
     def finish(self):
@@ -184,6 +230,9 @@ class Ctx:
             for kind, what, err in self.failures:
                 M.p(f"  {kind} {what}: {err}")
         self.ms.close()
+        self._quiet.close()
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def gan_table1(ctx):
@@ -204,7 +253,7 @@ def gan_table1(ctx):
             errors = ctx.cell(
                 lambda: protocol.run_gan_cell(
                     ds, percentlabeled=percent, cfg=cfg, seed=ctx.seed,
-                    verbose=ctx.args.verbose),
+                    verbose=ctx.args.verbose, mesh=ctx.mesh),
                 table=1, modality=modality, percent=percent,
             )
             for e in errors:
@@ -231,7 +280,7 @@ def gan_table3(ctx):
                 names, errs = protocol.run_gan_loo(
                     objects, percent, cfg=cfg, seed=ctx.seed,
                     on_result=lambda n, e: M.fold_result(e, prefix=n),
-                    device=ctx.device,
+                    device=ctx.device, mesh=ctx.mesh,
                 )
                 return errs
 
@@ -261,7 +310,8 @@ def gan_table5(ctx):
                 x, y = ctx.dataset(modalities=modality,
                                    forcetemp_time=ft_time)
                 return protocol.run_gan_cell(x, y, 100, cfg=cfg,
-                                             seed=ctx.seed, device=ctx.device)
+                                             seed=ctx.seed, device=ctx.device,
+                                             mesh=ctx.mesh)
 
             run_cell(run, modality=modality, ft_time=ft_time)
 
@@ -273,7 +323,7 @@ def gan_table5(ctx):
         def run(c_time=c_time):
             x, y = ctx.dataset(modalities=3, contactmic_time=c_time)
             return protocol.run_gan_cell(x, y, 100, cfg=cfg, seed=ctx.seed,
-                                         device=ctx.device)
+                                         device=ctx.device, mesh=ctx.mesh)
 
         run_cell(run, modality=3, c_time=c_time)
 
@@ -304,7 +354,7 @@ def gan_table6(ctx):
                     lambda: protocol.run_gan_cell(
                         ds, percentlabeled=percentlabeled,
                         percentunlabeled=percentunlabeled, cfg=cfg,
-                        seed=ctx.seed,
+                        seed=ctx.seed, mesh=ctx.mesh,
                     ),
                     table=6, modality=modality, percent=percentlabeled,
                     percent_unlabeled=percentunlabeled,
@@ -387,11 +437,11 @@ def nn_main(argv=None):
 
     def run_cell(x, y, percent):
         return mlp.run_mlp_cell(x, y, percent, cfg=cfg, seed=ctx.seed,
-                                device=ctx.device)
+                                device=ctx.device, mesh=ctx.mesh)
 
     def run_loo(objects, percent):
         return mlp.run_mlp_loo(objects, percent, cfg=cfg, seed=ctx.seed,
-                               device=ctx.device)
+                               device=ctx.device, mesh=ctx.mesh)
 
     if "2" in args.tables:
         _baseline_table2(ctx, run_cell)
@@ -423,10 +473,11 @@ def svm_main(argv=None):
         return svm.run_svm_loo(objects, percent, cfg=cfg, seed=ctx.seed,
                                device=ctx.device)
 
-    if "2" in args.tables:
-        _baseline_table2(ctx, run_cell)
-    if "4" in args.tables:
-        _baseline_table4(ctx, run_loo)
+    if ctx.rank == 0:  # the SMO is on the host: one rank computes
+        if "2" in args.tables:
+            _baseline_table2(ctx, run_cell)
+        if "4" in args.tables:
+            _baseline_table4(ctx, run_loo)
     ctx.finish()
 
 

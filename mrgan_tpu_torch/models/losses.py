@@ -11,6 +11,8 @@ Gaussian draws are arguments.
 import torch
 import torch.nn.functional as F
 
+from .nets import mean_over
+
 
 def loss_labeled(logits_lab, labels):
     """-E[logit_y] + E[logsumexp(logits)] (mr_gan.py:146-148): the K-class
@@ -30,11 +32,17 @@ def loss_unlabeled(logits_unl, logits_fake):
             + 0.5 * F.softplus(lse_fake).mean(dim=-1))
 
 
-def loss_feature_matching(mid_fake, mid_real):
+def loss_feature_matching(mid_fake, mid_real, group=None):
     """||E[f(G(z))] - E[f(x_unl)]||^2 / dim (mr_gan.py:152-154): the square
-    of the difference of the batch means, taken per fold."""
+    of the difference of the batch means, taken per fold. ``group``: a
+    data-parallel process group; the loss is not linear in the means, so
+    they are averaged over its ranks before the square
+    (mrgan_tpu/models/losses.py:36-50)."""
     mom_gen = mid_fake.mean(dim=-2)
     mom_real = mid_real.mean(dim=-2)
+    if group is not None:
+        mom_gen = mean_over(mom_gen, group)
+        mom_real = mean_over(mom_real, group)
     return torch.square(mom_gen - mom_real).mean(dim=-1)
 
 

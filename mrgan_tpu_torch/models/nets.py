@@ -35,6 +35,7 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -64,15 +65,54 @@ def dense_init(generator, in_dim, out_dim, device=None, folds=()):
 
 
 def dense(p, x):
-    """(F, B, in) rows through (F, in, out) weights, plus the bias."""
-    return torch.baddbmm(p["b"].unsqueeze(-2), x, p["w"])
+    """(F, B, in) rows through (F, in, out) weights, plus the bias.
+
+    A bf16 weight (a shadow, ``train.optim.mm_shadow``) is widened to
+    float32 and the product taken in float32: the JAX package's
+    ``dot_general(x_f32, w_bf16, preferred_element_type=f32)``, which rounds
+    the weight and not ``x`` (mrgan_tpu/models/nets.py:41-58). The gradient
+    of the widening rounds back to bf16, as JAX's transpose does."""
+    w = p["w"]
+    if w.dtype == torch.bfloat16:
+        w = w.float()
+    return torch.baddbmm(p["b"].unsqueeze(-2), x, w)
 
 
-def batchnorm_train(p, x):
+class AllReduceSum(torch.autograd.Function):
+    """The sum of a tensor over the ranks of a process group, differentiable:
+    the backward sums the gradient over the ranks, as JAX's ``psum``
+    transposes."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        out = t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return AllReduceSum.apply(grad, ctx.group), None
+
+
+def mean_over(t, group):
+    """The mean of ``t`` over the ranks of a process group (JAX's
+    ``pmean``): an all-reduce SUM divided by the group's size."""
+    return AllReduceSum.apply(t, group) / dist.get_world_size(group)
+
+
+def batchnorm_train(p, x, group=None):
     """Batch-statistics normalization over the rows (axis -2) of each fold,
-    biased variance (mrgan_tpu/models/nets.py:74-85)."""
+    biased variance (mrgan_tpu/models/nets.py:74-85). ``group``: a
+    data-parallel process group; the mean, then the mean of the squared
+    deviations from it, are averaged over its ranks, so a sharded batch
+    takes the whole batch's statistics."""
     mean = x.mean(dim=-2, keepdim=True)
+    if group is not None:
+        mean = mean_over(mean, group)
     var = ((x - mean) ** 2).mean(dim=-2, keepdim=True)
+    if group is not None:
+        var = mean_over(var, group)
     inv = torch.rsqrt(var + BN_EPS)
     return ((x - mean) * inv * p["gamma"].unsqueeze(-2)
             + p["beta"].unsqueeze(-2))
@@ -93,11 +133,12 @@ def generator_init(generator, noise_size, out_dim, n_folds, hidden=500,
             "d2": d2, "d3": d3}
 
 
-def generator_apply(params, z, out_mask=None):
+def generator_apply(params, z, out_mask=None, group=None):
     """(F, B, noise) -> (F, B, D); always train phase, like the reference.
-    ``out_mask``: (D,) 0/1, zeroes the padded feature columns."""
+    ``out_mask``: (D,) 0/1, zeroes the padded feature columns. ``group``:
+    the data-parallel group of the BatchNorm statistics."""
     x = F.softplus(dense(params["d1"], z))
-    x = batchnorm_train(params["bn"], x)
+    x = batchnorm_train(params["bn"], x, group)
     x = F.softplus(dense(params["d2"], x))
     x = dense(params["d3"], x)
     if out_mask is not None:

@@ -10,13 +10,15 @@ The bases are built once in float64 numpy, exactly as the JAX package builds
 them, and cached as float32 tensors for each device. ``frontend_logmel``
 sends a CUDA tensor to the hand-written kernel (``ops.mel_cuda``) and a CPU
 tensor to the plain path here, under the JAX package's environment switches
-(``MRGAN_MEL_BACKEND``, ``MRGAN_MEL_PRECISION``).
+(``MRGAN_MEL_BACKEND``, ``MRGAN_MEL_PRECISION``). ``logmel_sharded`` splits
+each example's frames over the ranks of a process group.
 """
 
 import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 _AMIN = 1e-10
@@ -183,6 +185,16 @@ def logmel(audio, sr=48000, n_fft=2048, hop_length=512, n_mels=128,
                                                  precision), flatten)
 
 
+def _precision_name():
+    prec_name = os.environ.get("MRGAN_MEL_PRECISION", "highest").lower()
+    if prec_name not in ("highest", "high"):
+        raise ValueError(
+            "MRGAN_MEL_PRECISION=%r; valid: highest/high (DEFAULT/1-pass-bf16 "
+            "is rejected for parity use — 4.9 dB off the golden fixtures)"
+            % prec_name)
+    return prec_name
+
+
 def frontend_logmel(audio, sr=48000, n_fft=2048, hop_length=512, n_mels=128,
                     flatten=True):
     """Production mel frontend (the mr_gan.py:44-47 surface).
@@ -203,13 +215,7 @@ def frontend_logmel(audio, sr=48000, n_fft=2048, hop_length=512, n_mels=128,
     setting; the port's CPU result is that same float32 plain path.
     """
     backend = os.environ.get("MRGAN_MEL_BACKEND", "auto").lower()
-    prec_name = os.environ.get("MRGAN_MEL_PRECISION", "highest").lower()
-    precisions = ("highest", "high")
-    if prec_name not in precisions:
-        raise ValueError(
-            "MRGAN_MEL_PRECISION=%r; valid: %s (DEFAULT/1-pass-bf16 is "
-            "rejected for parity use — 4.9 dB off the golden fixtures)"
-            % (prec_name, "/".join(precisions)))
+    prec_name = _precision_name()
     if backend == "auto":
         backend = "pallas" if audio.device.type == "cuda" else "gemm"
     elif backend not in ("gemm", "pallas"):
@@ -234,3 +240,47 @@ def frontend_logmel(audio, sr=48000, n_fft=2048, hop_length=512, n_mels=128,
                          % audio.device)
     return logmel(audio, sr=sr, n_fft=n_fft, hop_length=hop_length,
                   n_mels=n_mels, flatten=flatten)
+
+
+def logmel_sharded(audio, mesh, axis="data", sr=48000, n_fft=2048,
+                   hop_length=512, n_mels=128):
+    """Frame-block sequence parallelism for the mel frontend
+    (mrgan_tpu/ops/mel.py:222-279): the STFT frames of an example are
+    independent given the centre padding, so each rank of the mesh's
+    ``axis`` group computes a contiguous block of T / n frames of every
+    example, and only the per-example reference level and ``top_db`` peak
+    cross ranks (two all-reduce MAX operations on (B,) vectors).
+
+    audio: (B, N) on this rank's device; the frame count T = 1 + N // hop
+    must divide by the group's size (pad the audio). Returns this rank's
+    (B, n_mels, T / n) block of ``logmel(audio, flatten=False)``. On a CUDA
+    tensor the block's mel power is the mel kernel's
+    (``mel_cuda.mel_power_framed``, at ``MRGAN_MEL_PRECISION``), on a CPU
+    tensor the float32 plain path, as ``frontend_logmel`` serves them."""
+    group = mesh.group(axis)
+    n_sh, rank = dist.get_world_size(group), dist.get_rank(group)
+    t = num_frames(audio.shape[-1], hop_length)
+    if t % n_sh:
+        raise ValueError("frame count %d not divisible by mesh axis %s=%d; "
+                         "pad the audio length" % (t, axis, n_sh))
+    if audio.device.type not in ("cuda", "cpu"):
+        raise ValueError("logmel_sharded serves cuda and cpu tensors, got %s"
+                         % audio.device)
+    from . import mel_cuda
+
+    tb = t // n_sh
+    precision = _precision_name() if audio.device.type == "cuda" else "highest"
+    start = rank * tb * hop_length
+    block = reflect_pad(audio.to(torch.float32), n_fft)[
+        :, start:start + (tb - 1) * hop_length + n_fft].contiguous()
+    mel = mel_cuda.mel_power_framed(block, tb, hop_length, sr, n_fft, n_mels,
+                                    precision).reshape(len(audio), tb, n_mels)
+    log_spec = 10.0 * torch.log10(torch.clamp(mel, min=_AMIN))
+    ref = torch.amax(mel, dim=(1, 2))
+    dist.all_reduce(ref, op=dist.ReduceOp.MAX, group=group)
+    log_spec = log_spec - 10.0 * torch.log10(
+        torch.clamp(ref, min=_AMIN))[:, None, None]
+    peak = torch.amax(log_spec, dim=(1, 2))
+    dist.all_reduce(peak, op=dist.ReduceOp.MAX, group=group)
+    log_spec = torch.maximum(log_spec, peak[:, None, None] - _TOP_DB)
+    return log_spec.transpose(1, 2)  # (B, n_mels, T / n) — librosa layout

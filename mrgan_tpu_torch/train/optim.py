@@ -17,8 +17,9 @@ float64 for float64 parameters, a rounding yardstick).
 The step counter lives on the host (a Python int), so lr_t is a host scalar
 and an update queues device work without waiting on the device. Each
 operation is one ``torch._foreach_*`` call over all of a network's leaves.
-Not ported: ``CarryPack`` (a layout of the JAX scan carry; torch has no
-carry) and ``mm_shadow`` (bf16 weight shadows, ``ROADMAP.md`` A3).
+``mm_shadow`` gives the bf16 weight shadows the trainers' matmuls read
+under ``matmul_weight_dtype="bfloat16"``. Not ported: ``CarryPack`` (a
+layout of the JAX scan carry; torch has no carry).
 """
 
 import numpy as np
@@ -27,6 +28,20 @@ import torch
 from ..utils import tree
 
 STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def mm_shadow(params):
+    """bf16 shadow of the weight matrices (mrgan_tpu/train/optim.py:75-85):
+    every ``"w"`` leaf rounded to bfloat16 (round to nearest even), every
+    other leaf (biases, BatchNorm vectors) kept as it is. The leaves carry a
+    leading fold axis, so a weight is (F, in, out) and a bias (F, out): the
+    JAX package's rule ``ndim == 2`` becomes the leaf's name here."""
+    if isinstance(params, dict):
+        return {k: v.to(torch.bfloat16) if k == "w" else mm_shadow(v)
+                for k, v in params.items()}
+    if isinstance(params, list):
+        return [mm_shadow(v) for v in params]
+    return params
 
 
 def init(params, state_dtype=torch.float32, t0=0):

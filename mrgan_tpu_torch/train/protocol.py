@@ -14,9 +14,13 @@ numpy copy of scikit-learn's ``StratifiedKFold(shuffle=True)``, and
 (``train.splits``), which the machine with the card does not have.
 Training runs every fold of a cell in one launch of the fold-stacked
 trainer (``train.gan``); a leave-one-object-out block of 6 objects is one
-launch too. The JAX package's per-launch byte budget and its mesh routes
-were TPU calibrations and are not ported: the widest launch (6 Table-5
-folds at 12,032 features) fits in 80 GB.
+launch too. The JAX package's per-launch byte budget was a TPU calibration
+and is not ported: the widest launch (6 Table-5 folds at 12,032 features)
+fits in 80 GB. Its mesh routes are ported: the entry points take a
+``parallel.mesh.Mesh`` (``mesh=None`` is one process, as before), whose
+cell ranks split a launch's folds (``parallel.sweep``) or, with one cell
+rank and several data ranks, train each batch data-parallel
+(``parallel.spmd``).
 
 Every entry point that uploads data takes the device as a required keyword:
 nothing falls back to the CPU.
@@ -205,11 +209,12 @@ def loo_splits(objects):
         yield name, x_train, y_train, x_test, y_test
 
 
-def run_prepared_folds(folds, cfg, rng, *, device):
+def run_prepared_folds(folds, cfg, rng, *, device, mesh=None):
     """Pad, stack and train a list of prepared folds in one launch of the
-    fold-stacked trainer on ``device``; the trainer's generator is seeded
-    from one ``rng.randint`` draw, as the JAX package's keys are. Returns
-    the (F,) test errors as numpy."""
+    fold-stacked trainer on ``device``, split over the cell ranks of a
+    ``mesh`` whose cell axis is wider than 1 (``parallel.sweep``); the
+    trainer's generator is seeded from one ``rng.randint`` draw, as the JAX
+    package's keys are. Returns the (F,) test errors as numpy."""
     device = device_lib.resolve(device)
     stacked = stack_folds(folds)
     data = {}
@@ -222,6 +227,12 @@ def run_prepared_folds(folds, cfg, rng, *, device):
                 torch.as_tensor(stacked[k], dtype=torch.float32,
                                 device=device), cfg.pad_multiple, cfg.pad_min)
     generator = rng_util.make_generator(rng.randint(2**31 - 1), device)
+    if mesh is not None and mesh.shape["cell"] > 1:
+        from ..parallel import sweep
+
+        return sweep.train_gan_work(generator, n_train=stacked["n_train"],
+                                    valid_dim=valid_dim, cfg=cfg, mesh=mesh,
+                                    **data)
     errors, _aux = gan.train_folds(generator, n_train=stacked["n_train"],
                                    valid_dim=valid_dim, cfg=cfg, **data)
     return errors
@@ -250,7 +261,7 @@ def print_epoch_lines(errs, metrics, epochs, seconds_per_epoch):
 
 def run_gan_cell(x, y=None, percentlabeled=50, percentunlabeled=None,
                  cfg=gan.GanConfig(), seed=0, n_splits=6, splits=None,
-                 verbose=False, device=None):
+                 verbose=False, device=None, mesh=None):
     """One sweep cell: every fold trained in one launch; returns per-fold
     test errors (numpy).
 
@@ -259,7 +270,8 @@ def run_gan_cell(x, y=None, percentlabeled=50, percentunlabeled=None,
     test_idx) pairs, else stratified ``n_splits``-fold. ``verbose``: train
     with per-epoch metrics and print the reference's epoch lines; the time
     field is the cell's wall time spread evenly over its epochs, as in the
-    JAX package (its fused scan has no per-epoch host clock)."""
+    JAX package (its fused scan has no per-epoch host clock). ``mesh``: a
+    ``parallel.mesh.Mesh`` (:func:`run_indexed_folds`)."""
     rng = np.random.RandomState(seed)
     ds = as_dataset(x, y, cfg.pad_multiple, cfg.pad_min, device)
     check_padded_width(ds, cfg)
@@ -271,24 +283,40 @@ def run_gan_cell(x, y=None, percentlabeled=50, percentunlabeled=None,
         for tr, te in splits
     ]
     if not verbose:
-        return run_indexed_folds(ds, idx, cfg, rng)
+        return run_indexed_folds(ds, idx, cfg, rng, mesh)
     cfg_v = dataclasses.replace(cfg, track_epoch_metrics=True)
     t0 = time.perf_counter()
-    errs, metrics = run_indexed_folds(ds, idx, cfg_v, rng)
+    errs, metrics = run_indexed_folds(ds, idx, cfg_v, rng, mesh)
     dt = (time.perf_counter() - t0) / max(cfg.epochs * len(idx), 1)
     print_epoch_lines(errs, metrics, cfg.epochs, dt)
     return errs
 
 
-def run_indexed_folds(ds, idx, cfg, rng):
+def run_indexed_folds(ds, idx, cfg, rng, mesh=None):
     """Stack per-fold index tuples and train them in one launch against
     ds.X. The trainer's generator is seeded from one ``rng.randint`` draw,
     as the JAX package's keys are. Returns what ``gan.train_folds_indexed``
-    returns."""
+    returns.
+
+    ``mesh`` (mrgan_tpu/train/protocol.py:250-306): a cell axis wider than
+    1 splits the folds over the cell ranks (``sweep.train_gan_work_indexed``);
+    else a data axis wider than 1 trains each batch over the data ranks
+    (``spmd.train_gan_cell_dp``); else, and with None, one launch here."""
     lab, pool, train, test = (np.stack([f[i] for f in idx]) for i in range(4))
     generator = rng_util.make_generator(rng.randint(2**31 - 1), ds.X.device)
-    return gan.train_folds_indexed(generator, ds.X, ds.y, lab, pool, train,
-                                   test, valid_dim=ds.valid_dim, cfg=cfg)
+    args = (generator, ds.X, ds.y, lab, pool, train, test)
+    if mesh is not None and mesh.shape["cell"] > 1:
+        from ..parallel import sweep
+
+        return sweep.train_gan_work_indexed(
+            *args, valid_dim=ds.valid_dim, cfg=cfg, mesh=mesh,
+            with_metrics=cfg.track_epoch_metrics)
+    if mesh is not None and mesh.shape["data"] > 1:
+        from ..parallel import spmd
+
+        return spmd.train_gan_cell_dp(*args, valid_dim=ds.valid_dim, cfg=cfg,
+                                      mesh=mesh)
+    return gan.train_folds_indexed(*args, valid_dim=ds.valid_dim, cfg=cfg)
 
 
 # --------------------------------------------------------------------------
@@ -309,11 +337,12 @@ def objects_dataset(objects, pad_multiple, pad_min, device):
 
 
 def run_gan_loo(objects, percentlabeled, cfg=gan.GanConfig(), seed=0,
-                chunk=None, on_result=None, *, device):
+                chunk=None, on_result=None, *, device, mesh=None):
     """Leave-one-object-out protocol (mr_gan.py:263-283): every held-out
     object is a work item with the same static shapes, so blocks of
-    ``chunk`` items (``loo_chunk``: 6) train in one launch each, gathered
-    from one device-resident copy of the rows.
+    ``chunk`` items (``loo_chunk``: 6 a cell rank of ``mesh``) train in
+    one launch each, gathered from one device-resident copy of the rows,
+    through :func:`run_indexed_folds`'s routes.
 
     Returns (names, errors) in dict order; ``on_result(name, err)`` fires per
     object as each block completes."""
@@ -321,12 +350,12 @@ def run_gan_loo(objects, percentlabeled, cfg=gan.GanConfig(), seed=0,
     names, offs, ds = objects_dataset(objects, cfg.pad_multiple, cfg.pad_min,
                                       device)
     if chunk is None:
-        chunk = loo_chunk(len(names))
+        chunk = loo_chunk(len(names), mesh)
     errors = []
     for block, idx, n_real in iter_loo_blocks(
             names, offs, ds.y_host, percentlabeled, cfg.num_classes, rng,
             chunk):
-        errs = run_indexed_folds(ds, idx, cfg, rng)[:n_real]
+        errs = run_indexed_folds(ds, idx, cfg, rng, mesh)[:n_real]
         for i, e in zip(block, errs):
             errors.append(float(e))
             if on_result is not None:
@@ -334,13 +363,15 @@ def run_gan_loo(objects, percentlabeled, cfg=gan.GanConfig(), seed=0,
     return names, np.asarray(errors)
 
 
-def loo_chunk(n_names):
-    """Work items per LOO launch: 6, the JAX package's width on one device
-    (``loo_chunk(n, mesh=None)``). The labeled rows depend on it: the
-    numpy stream draws a block's permutations, then the block's trainer
-    seed, then the next block's, so only a chunk of 6 picks the rows of
-    the JAX package's recorded runs."""
-    return min(n_names, 6)
+def loo_chunk(n_names, mesh=None):
+    """Work items per LOO launch: 6 a cell rank of ``mesh`` (6 without
+    one), as ``loo_chunk(n, mesh)`` of mrgan_tpu/train/protocol.py:401-410.
+    The labeled rows depend on it: the numpy stream draws a block's
+    permutations, then the block's trainer seed, then the next block's, so
+    only the JAX package's chunk for the same mesh picks the rows of its
+    runs."""
+    n_cell = mesh.shape["cell"] if mesh is not None else 1
+    return min(n_names, 6 * n_cell)
 
 
 def iter_loo_blocks(names, offs, y_host, percentlabeled, num_classes, rng,

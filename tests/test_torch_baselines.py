@@ -132,8 +132,12 @@ def test_draw_epoch_shapes_and_permutations():
 
 
 def test_mlp_config_refuses_bf16_weights():
-    with pytest.raises(ValueError, match="float32 weights only"):
-        mlp.MlpConfig(matmul_weight_dtype="bfloat16")
+    # the bf16 shadows are ported as an opt-in (float32 stays the port's
+    # default); a weight dtype neither package has is refused
+    with pytest.raises(ValueError, match="matmul_weight_dtype must be"):
+        mlp.MlpConfig(matmul_weight_dtype="float16")
+    assert mlp.MlpConfig(matmul_weight_dtype="bfloat16")
+    assert mlp.MlpConfig().matmul_weight_dtype == "float32"
     assert mlp.MlpConfig().pad_multiple == 1
 
 

@@ -214,3 +214,40 @@ def test_parser_takes_the_jax_flags_plus_device():
     args = tables.build_parser("x").parse_args(ARGS + ["--no-mesh"])
     assert isinstance(args, argparse.Namespace) and args.no_mesh
     assert args.device == "cuda" and args.tables == ["1"]
+
+
+def test_profiling_trace_annotate_and_throughput(tmp_path, monkeypatch):
+    """``utils/profiling.py``: ``trace`` writes a Chrome trace holding the
+    ranges ``annotate`` opened (``Ctx.cell`` names each cell with one);
+    ``Throughput`` counts steps per second per device as the JAX
+    package's meter does."""
+    from mrgan_tpu.utils import profiling as jax_profiling
+    from mrgan_tpu_torch.utils import profiling
+
+    with profiling.trace(str(tmp_path / "trace")):
+        with profiling.annotate("cell:percent=1,table=1"):
+            torch.ones(8).sum()
+    events = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    names = {e.get("name") for e in events["traceEvents"]}
+    assert "cell:percent=1,table=1" in names
+
+    class Stream:
+        def __init__(self):
+            self.seen = []
+
+        def emit(self, metric, **fields):
+            self.seen.append((metric, sorted(fields)))
+
+    # both meters read the one time module: started at 10 s, read at 12 s
+    clock = iter([10.0, 10.0, 12.0, 12.0])
+    monkeypatch.setattr(profiling.time, "perf_counter", lambda: next(clock))
+    assert jax_profiling.time is profiling.time
+    got, want = Stream(), Stream()
+    meter = profiling.Throughput(n_chips=2, stream=got)
+    jax_meter = jax_profiling.Throughput(n_chips=2, stream=want)
+    meter.mark(40)
+    jax_meter.mark(40)
+    assert meter.emit(cell=1) == jax_meter.emit(cell=1) == 10.0
+    assert got.seen == want.seen
+    monkeypatch.undo()
+    assert profiling.Throughput().n_chips == 1  # no process group: one

@@ -51,7 +51,9 @@ def test_port_imports_without_jax():
                  "variants.autoencoder", "cli.autoencoder",
                  "variants.activation_maps", "cli.activation_map",
                  "data.preprocess", "cli.preprocess", "data.py2pickle",
-                 "ops.resample", *ACQUISITION):
+                 "ops.resample", "parallel", "parallel.mesh",
+                 "parallel.multihost", "parallel.spmd", "parallel.sweep",
+                 "parallel.tensor", "utils.profiling", *ACQUISITION):
         assert "mrgan_tpu_torch." + name in names
     proc = subprocess.run(
         [sys.executable, "-c", _CHILD, *names], cwd=ROOT,

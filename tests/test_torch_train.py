@@ -187,8 +187,12 @@ def test_adam_matches_jax(dtype, t0):
 
 
 def test_config_refuses_what_is_not_ported():
-    with pytest.raises(ValueError, match="float32 weights only"):
-        gan.GanConfig(matmul_weight_dtype="bfloat16")
+    # the bf16 shadows are ported (the JAX package's default, an opt-in
+    # here); a weight dtype neither package has is refused
+    assert gan.GanConfig(matmul_weight_dtype="bfloat16")
+    assert gan.GanConfig().matmul_weight_dtype == "float32"
+    with pytest.raises(ValueError, match="matmul_weight_dtype must be"):
+        gan.GanConfig(matmul_weight_dtype="float16")
     with pytest.raises(ValueError):
         gan.GanConfig(opt_state_dtype="float16")
     assert gan.GanConfig().pad_multiple == 1
@@ -483,3 +487,213 @@ def test_verbose_lines_equal_the_jax_packages(monkeypatch, capsys):
     assert got.splitlines()[0] == (
         "Epoch 1, time = 0s, loss labeled = 1.2346, loss unlabeled = 0.7500, "
         "train error = 0.5000, test error = 0.3333")
+
+
+# --------------------------------------------------------------------------
+# bf16 weight shadows (matmul_weight_dtype="bfloat16")
+# --------------------------------------------------------------------------
+
+def _leaves_by_path(tree_, prefix=""):
+    if isinstance(tree_, dict):
+        out = {}
+        for k in tree_:
+            out.update(_leaves_by_path(tree_[k], prefix + "/" + k))
+        return out
+    return {prefix: tree_}
+
+
+def test_mm_shadow_matches_jax_leaf_for_leaf():
+    """The weight matrices round to bf16 (RNE), biases and BatchNorm
+    vectors stay float32: by the leaf's name, since the port's BatchNorm
+    gamma is (F, 500), two-dimensional like a JAX weight."""
+    params = _np(jax_gan.init_params(jax.random.PRNGKey(4), 40,
+                                     jax_gan.GanConfig()))
+    params = jax.tree.map(lambda a: a + 1e-3 * np.pi, params)  # odd bits
+    want = _leaves_by_path(jax_optim.mm_shadow(params))
+    got = _leaves_by_path(optim.mm_shadow(gan.params_from_jax(params)))
+    assert set(got) == set(want)
+    for path, w in want.items():
+        g = got[path]
+        assert g.dtype == (torch.bfloat16 if path.endswith("/w")
+                           else torch.float32), path
+        assert np.dtype(w.dtype) == (jnp.bfloat16 if path.endswith("/w")
+                                     else np.float32), path
+        np.testing.assert_array_equal(g[0].float().numpy(),
+                                      np.asarray(w, np.float32), err_msg=path)
+
+
+def _record_updates(monkeypatch, module):
+    """Record the gradients every Adam update of ``module`` is given."""
+    grads, real = [], module.update
+
+    def update(g, *a, **k):
+        grads.append(g)
+        return real(g, *a, **k)
+
+    monkeypatch.setattr(module, "update", update)
+    return grads
+
+
+def _assert_shadow_grads_equal(got, want):
+    got, want = _leaves_by_path(got), _leaves_by_path(want)
+    assert set(got) == set(want)
+    for path, w in want.items():
+        g, w = got[path], np.asarray(w.astype(jnp.float32))
+        if path.endswith("/w"):  # the gradient of a shadow comes back bf16
+            assert g.dtype == torch.bfloat16
+            # the bit patterns: bf16 is the top half of a float32
+            a = (g[0].float().numpy().view(np.int32) >> 16).astype(np.int64)
+            b = (w.view(np.int32) >> 16).astype(np.int64)
+            print("%s: %d of %d bf16 gradients differ, max %d ulp" % (
+                path, (a != b).sum(), a.size, np.abs(a - b).max()))
+            # equal to the bit but where the two float32 sums, in another
+            # order, fall on two sides of a bf16 rounding boundary
+            assert (a == b).mean() >= 0.99, path
+            np.testing.assert_allclose(g[0].float().numpy(), w, rtol=2**-7,
+                                       atol=1e-3 * np.abs(w).max(),
+                                       err_msg=path)
+        else:  # float32 sums in another order
+            np.testing.assert_allclose(g[0].numpy(), w, rtol=1e-3, atol=1e-7,
+                                       err_msg=path)
+
+
+def test_shadow_train_step_matches_jax_dp_batch_step(monkeypatch):
+    """One GAN step under ``matmul_weight_dtype="bfloat16"``, fed the JAX
+    package's draws, against its single-device shadow step
+    (``parallel.spmd.dp_batch_step``, axis None): the bf16 weight
+    gradients equal (:func:`_assert_shadow_grads_equal`), the float32
+    parameters within 1e-5."""
+    from mrgan_tpu.parallel import spmd as jax_spmd
+
+    d, bs = 40, 24
+    rng = np.random.RandomState(9)
+    xl, xu, xu2 = (rng.randn(bs, d).astype(np.float32) for _ in range(3))
+    yl = rng.randint(0, 6, bs).astype(np.int32)
+    common = dict(noise_size=16, batch_size=bs, matmul_weight_dtype="bfloat16")
+    jcfg = jax_gan.GanConfig(**common)
+    cfg = gan.GanConfig(**common)
+    jparams, jopt = jax_spmd.init_cells(jax.random.PRNGKey(2), 1, d, jcfg)
+    jparams = jax.tree.map(lambda a: a[0], jparams)
+    jopt = jax.tree.map(lambda a: a[0], jopt)
+    key = jax.random.PRNGKey(5)
+    jax_grads = _record_updates(monkeypatch, jax_optim)
+    pg, pd, _, _, metrics = jax_spmd.dp_batch_step(
+        jparams["gen"], jparams["disc"], jopt["d"], jopt["g"], xl, yl, xu,
+        xu2, key, cfg=jcfg, axis_name=None)
+
+    k_z1, k_z2, k_d, k_g = jax.random.split(key, 4)
+    dims = (d, *jax_nets.DISC_WIDTHS)
+    t = torch.tensor
+    rand = {"z1": t(np.asarray(jax.random.normal(k_z1, (bs, 16))))[None],
+            "noise_d": [t(a)[None] for a in _jax_noise(k_d, 3 * bs, dims)],
+            "z2": t(np.asarray(jax.random.normal(k_z2, (bs, 16))))[None],
+            "noise_g": [t(a)[None] for a in _jax_noise(k_g, 2 * bs, dims)]}
+    grads = _record_updates(monkeypatch, optim)
+    state = gan.init_state(gan.params_from_jax(_np(jparams)), cfg)
+    state, (ll, lu, terr) = gan.batch_step(
+        state, t(xl)[None], t(yl).long()[None], t(xu)[None], t(xu2)[None],
+        rand, cfg=cfg)
+    assert len(grads) == len(jax_grads) == 2
+    for g, w in zip(grads, jax_grads):  # disc, then gen
+        _assert_shadow_grads_equal(g, w)
+    got = gan.params_to_jax({"gen": state["gen"], "disc": state["disc"]})
+    for name, want in (("gen", pg), ("disc", pd)):
+        for path, w in _leaves_by_path(_np(want)).items():
+            g = _leaves_by_path(got[name])[path]
+            np.testing.assert_allclose(g[0], w, rtol=0, atol=1e-5,
+                                       err_msg=name + path)
+    for got_v, name in ((ll, "loss_lab"), (lu, "loss_unl"),
+                        (terr, "train_err")):
+        assert got_v.item() == pytest.approx(float(metrics[name]), abs=1e-5)
+
+
+def test_mlp_shadow_step_matches_jax(monkeypatch):
+    """One MLP step under ``"bfloat16"`` fed the JAX package's draws: the
+    bf16 weight gradients equal those of the JAX step's body
+    (mrgan_tpu/train/mlp.py:55-77), the float32 parameters of
+    ``_train_one``'s one step within 1e-5 / 1e-4 but a 1e-4 share
+    (:func:`_outliers`, as the float32 steps are held)."""
+    from mrgan_tpu.train import mlp as jax_mlp
+    from mrgan_tpu_torch.train import mlp
+
+    feat, n = 28, 20
+    rng = np.random.RandomState(4)
+    x = rng.randn(n, feat).astype(np.float32)
+    y = np.arange(n) % 6
+    x_test = rng.randn(12, feat).astype(np.float32)
+    y_test = np.arange(12) % 6
+    jcfg = jax_mlp.MlpConfig(epochs=1, pad_multiple=1)
+    assert jcfg.matmul_weight_dtype == "bfloat16"  # the JAX default
+    cfg = mlp.MlpConfig(epochs=1, matmul_weight_dtype="bfloat16")
+    key = jax.random.PRNGKey(6)
+    _, aux = jax_mlp._train_one(key, jnp.asarray(x), jnp.asarray(y),
+                                jnp.asarray(x_test), jnp.asarray(y_test),
+                                valid_dim=feat, cfg=jcfg)
+    k_init, k_run = jax.random.split(key)
+    params = _np(jax_nets.mlp_init(k_init, feat, 6))
+    (k_epoch,) = jax.random.split(k_run, 1)
+    k_perm, k_steps = jax.random.split(k_epoch)
+    perm = np.asarray(jax.random.permutation(k_perm, n))
+    (k,) = jax.random.split(k_steps, 1)
+    onehot = np.eye(6, dtype=np.float32)[y[perm]]
+
+    def loss_fn(p):  # the body of the JAX step's loss
+        logits = jax_nets.mlp_apply(p, x[perm], k, train=True)
+        return jnp.mean(jnp.square(logits - onehot))
+
+    want_grads = jax.grad(loss_fn)(jax_optim.mm_shadow(params))
+    keys = jax.random.split(k, len(jax_nets.MLP_WIDTHS))
+    dims = (feat, *jax_nets.MLP_WIDTHS[:-1])
+    noise = [torch.tensor(np.asarray(jax.random.normal(kk, (n, dd))))[None]
+             for kk, dd in zip(keys, dims)]
+    grads = _record_updates(monkeypatch, optim)
+    state = {"params": nets.mlp_from_jax(params)}
+    state["opt"] = optim.init(state["params"])
+    state, _ = mlp.train_step(state, torch.tensor(x[perm])[None],
+                              torch.tensor(onehot)[None], noise, cfg=cfg)
+    _assert_shadow_grads_equal(grads[0], want_grads)
+    got = _leaves_by_path(nets.mlp_to_jax(state["params"]))
+    for path, w in _leaves_by_path(_np(aux["params"])).items():
+        _outliers(got[path][0], w)  # as the float32 steps are held
+
+
+def test_shadow_fold_matches_jax_train_folds_indexed(monkeypatch):
+    """A 1-epoch fold under ``"bfloat16"`` through ``train_folds_indexed``,
+    fed the JAX package's draws, against its ``train_folds_indexed``: the
+    per-epoch metrics and the test error."""
+    n, d, n_lab, n_train, n_test = 150, 24, 36, 120, 30
+    rng = np.random.RandomState(11)
+    y = np.arange(n) % 6
+    x = (2.0 * rng.randn(6, d)[y] + rng.randn(n, d)).astype(np.float32)
+    perm = rng.permutation(n)
+    train, test = perm[:n_train], perm[n_train:n_train + n_test]
+    lab = train[:n_lab]
+    idx = [a[None].astype(np.int32) for a in (lab, train, train, test)]
+    common = dict(epochs=1, batch_size=40, track_epoch_metrics=True,
+                  matmul_weight_dtype="bfloat16")
+    jcfg = jax_gan.GanConfig(pad_multiple=1, **common)
+    cfg = gan.GanConfig(**common)
+    keys = jax.random.split(jax.random.PRNGKey(21), 1)
+    want_err, want = jax_gan.train_folds_indexed(
+        keys, x, y.astype(np.int32), *idx, valid_dim=d, cfg=jcfg,
+        with_metrics=True)
+    params, steps = _jax_draws(keys[0], jcfg, n_lab, n_train, n_train, d)
+    t = torch.tensor
+    nb = n_train // cfg.batch_size
+    epochs = iter([tuple(t(np.stack([s[i] for s in steps[e:e + nb]]))[None]
+                         for i in range(3))
+                   for e in range(0, len(steps), nb)])
+    draws = iter([{k: ([t(a)[None] for a in v] if isinstance(v, list)
+                       else t(v)[None]) for k, v in s[3].items()}
+                  for s in steps])
+    monkeypatch.setattr(gan, "init_params",
+                        lambda *a, **k: gan.params_from_jax(params))
+    monkeypatch.setattr(gan, "epoch_schedule", lambda *a, **k: next(epochs))
+    monkeypatch.setattr(gan, "draw_step", lambda *a, **k: next(draws))
+    errs, got = gan.train_folds_indexed(
+        rng_util.make_generator(0, "cpu"), t(x), t(y), *idx, cfg=cfg)
+    assert next(draws, None) is None  # every draw consumed
+    for name in gan.EPOCH_METRICS:
+        np.testing.assert_allclose(got[name], np.asarray(want[name]),
+                                   rtol=0, atol=1e-5, err_msg=name)
+    np.testing.assert_allclose(errs, np.asarray(want_err), rtol=0, atol=1e-6)
