@@ -164,13 +164,38 @@ Phases (any failure raises and the script exits non-zero):
 28. NCCL at world size 1: the sweep and data-parallel entry points return
     one process's cell bit for bit (1 epoch); rank 1 of 2 is refused
     cuda:1; two NCCL ranks on cuda:0 raise at their first collective.
+29. The paper figures: ``reports.plots.sample_trace_data`` on the card
+    (the synthetic set of seed 0), each material's log-mel from one
+    ``mel_power`` launch held to the plain ``mel.logmel`` at 0.02 dB; the
+    curves of ``artifacts/t1_sweep.jsonl`` and ``t5_sweep.jsonl``; the
+    figures through ``cli.plots.main`` where matplotlib or plotly is
+    installed, else the ``ImportError`` that names both.
+30. The SVM zoo and PCA: the grid's -t 0 folds of modality 2 (6 folds of
+    seed 54321, ``scale="scale"``, half of each class's train rows
+    labeled, ~3,000 a fold), ``learn_svm`` kernels 0-4 on their native
+    routes (the folds side by side in threads: the SMOs release the
+    interpreter lock), each fold within 0.03 of
+    ``artifacts/svm_zoo_ref.jsonl`` (the JAX package's scikit-learn runs,
+    ``tools/svm_zoo_ref.py``); ``pca_scale(pca=100)`` on the card within
+    1e-4 of the range of the CPU route's, its explained variance within
+    rtol 1e-4 of the record's.
+31. The double backward of the recurrence (``lstm_scan_adj``,
+    ``lstm_scan_bwd_ext``): the Petzka penalty's parameter gradients at
+    the iwganlstm critic's full width (6 folds x 128 mixed rows, T =
+    1,280, U 4, in 1, final state; the head scaled so that every row's
+    gradient norm passes 1) and at a U = 16 layer, kernels against the
+    plain loop on the card at phase 16's bars; both kernels timed beside
+    their plain versions and bound; one full-width ``disc_step`` with
+    ``petzka_lp=True`` held the same way; a 2-epoch ``run_wgan_cell`` with
+    it (errors, the share of updates with the penalty active, step time;
+    no JAX record holds it).
 
 The kernel counts are set to 0 just before each path is driven (phase 4,
 then phases 6-7, phase 9's request, each path of phases 12-15, 17-18,
-19-25 and 27; the ranks of phase 27 count in their own processes and
-return their counts) and read just after; the JSON line's ``launches`` is
-their sum.
-Phases 19, 20, 22 and 23 launch neither kernel, and check that they do
+19-25, 27 and 29-31; the ranks of phase 27 count in their own processes
+and return their counts) and read just after; the JSON line's
+``launches`` is their sum.
+Phases 19, 20, 22, 23 and 30 launch no kernel, and check that they do
 not. Launches made to compare a kernel with its plain version or to time
 it are not counted.
 
@@ -180,6 +205,7 @@ device.
 """
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -201,12 +227,14 @@ from mrgan_tpu_torch.acquisition import serialdev
 from mrgan_tpu_torch.cli import activation_map as am_cli
 from mrgan_tpu_torch.cli import autoencoder as ae_cli
 from mrgan_tpu_torch.cli import collect as collect_cli
+from mrgan_tpu_torch.cli import plots as plots_cli
 from mrgan_tpu_torch.cli import preprocess as prep_cli
 from mrgan_tpu_torch.cli import tables, wgan_grid
 from mrgan_tpu_torch.data import mreo, preprocess, py2pickle, synthetic
-from mrgan_tpu_torch.models import nets
+from mrgan_tpu_torch.models import losses, nets
 from mrgan_tpu_torch.models import variant_nets as vnets
 from mrgan_tpu_torch.ops import features, lstm, lstm_cuda, mel, mel_cuda
+from mrgan_tpu_torch.reports import plots
 from mrgan_tpu_torch.serve import MaterialClassifier, fit_classifier
 from mrgan_tpu_torch.train import gan, mlp, optim, protocol, svm
 from mrgan_tpu_torch.utils import device as numeric
@@ -3057,6 +3085,483 @@ def nccl_phase(data_path):
     return wall + pair_wall
 
 
+# -- the last paths: the paper figures, the SVM zoo and PCA, the double backward
+
+def plots_phase(dev):
+    """Phase 29: the trace figures' data on the card, each material's
+    log-mel (one ``mel_power`` launch for all six) held to the plain path;
+    the checkpoint curves; the figures where a renderer is installed.
+    Returns the ``mel_power`` launches."""
+    (traces, t), launches, _ = driven(
+        lambda: plots.sample_trace_data(dev, synthetic_seed=0))
+    assert launches == 1, launches
+    worst = 0.0
+    for m, tr in traces.items():
+        plain = mel.logmel(torch.from_numpy(tr["contact"][None]).to(dev),
+                           flatten=False)[0].cpu()
+        worst = max(worst, check_close("phase 29 %s log-mel" % m,
+                                       torch.from_numpy(tr["logmel"]),
+                                       plain, 0, DB_ATOL))
+        assert tr["force"].shape == tr["temperature"].shape == t.shape
+    curves = {table: plots.curves_from_checkpoint(
+        ROOT / "artifacts" / ("t%d_sweep.jsonl" % table), table)
+        for table in (1, 5)}
+    for table, c in curves.items():
+        assert c, table
+        print("phase 29: Table %d curves from artifacts/t%d_sweep.jsonl: %s"
+              % (table, table, "; ".join(
+                  "%s: %s" % (name, ", ".join("%g %.2f" % xy
+                                              for xy in zip(*points)))
+                  for name, points in sorted(c.items()))))
+    out_dir = OUT_DIR / "plots"
+    try:
+        (lines, wall), more, _ = driven(lambda: run_cli(plots_cli.main, [
+            "--synthetic", "--out-dir", str(out_dir), "--device",
+            str(dev)]))
+    except ImportError as e:
+        assert "plotly or matplotlib" in str(e), e
+        drawn = ("neither plotly nor matplotlib is installed here: the "
+                 "figures raise %r; they render where one is" % str(e))
+    else:
+        launches += more
+        made = [l.split("Wrote ")[1] for l in lines]
+        assert len(made) == 5 and all(os.path.getsize(f) for f in made), made
+        drawn = "cli.plots wrote %s in %.3f s" % (
+            ", ".join(Path(f).name for f in made), wall)
+    print("phase 29: sample_trace_data on the card: 6 log-mel blocks %s "
+          "from %d mel_power launch(es), max_abs_err %r dB vs the plain "
+          "path (bar %g); %s" % (traces[MATERIALS[0]]["logmel"].shape,
+                                 launches, worst, DB_ATOL, drawn))
+    return launches
+
+
+SVM_ZOO_REFERENCE = ROOT / "artifacts" / "svm_zoo_ref.jsonl"
+SVM_ZOO_FRACTION = 0.5
+PCA_COMPONENTS, PCA_RANGE_TOL, PCA_VAR_RTOL = 100, 1e-4, 1e-4
+SVM_KERNELS = ("SVC rbf", "SVC linear", "NuSVC rbf", "NuSVC linear",
+               "LinearSVC")
+
+
+def zoo_fold(x, y, tr, te, dev):
+    """One -t 0 fold of the grid's SVM protocol, kernels 0-4 on their
+    native routes: (accuracies, timings)."""
+    x_tr, x_te = baselines.pca_scale(x[tr], x[te], scale="scale")
+    x_lab, y_lab = baselines.select_fraction_labeled(
+        x_tr, np.asarray(y[tr], np.int32), SVM_ZOO_FRACTION, 6,
+        np.random.RandomState(54321))
+    accs, spent = [], []
+    for kernel in range(5):
+        timings = {}
+        accs.append(baselines.learn_svm(x_lab, y_lab, x_te, y[te], kernel,
+                                        device=dev, timings=timings))
+        spent.append(timings)
+    return accs, spent
+
+
+def svm_zoo_phase(dev, x2, y2):
+    """Phase 30: the SVM zoo's five kernels on the grid's -t 0 folds of
+    modality 2 against the JAX package's scikit-learn record, and the
+    exact PCA on the card against the CPU route and the record's
+    spectrum."""
+    ref = [json.loads(l) for l in SVM_ZOO_REFERENCE.read_text().splitlines()
+           if l.strip()]
+    x, y = x2.cpu().numpy(), y2.cpu().numpy()
+    folds = list(protocol.stratified_splits(y, n_splits=6, seed=54321))
+    assert len(ref) == len(folds) == 6
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(folds)) as pool:
+        results, dft, lstm_n = slice_driven(lambda: list(pool.map(
+            lambda f: zoo_fold(x, y, *f, dev), folds)))
+    wall = time.perf_counter() - t0
+    assert dft == 0 and lstm_n == (0, 0), (dft, lstm_n)
+    accs = np.asarray([r[0] for r in results])
+    want = np.asarray([r["accuracies"] for r in ref])
+    delta = np.abs(accs - want)
+    assert (delta <= SVM_FOLD_DELTA).all(), (accs, want)
+    for k, name in enumerate(SVM_KERNELS):
+        gram = sum(r[1][k]["gram_s"] for r in results)
+        solve = sum(r[1][k]["solve_s"] for r in results)
+        print("phase 30: kernel %d (%s): accuracies %s vs the record's %s, "
+              "worst |delta| %.4f (bar %.2f); Grams on the card %.1f ms "
+              "(host copy included), %s %.3f s (6 folds summed, the folds "
+              "side by side)" % (
+                  k, name, ["%.4f" % a for a in accs[:, k]],
+                  ["%.4f" % a for a in want[:, k]], delta[:, k].max(),
+                  SVM_FOLD_DELTA, 1e3 * gram,
+                  "Newton solve on the card" if k == 4 else
+                  "SMO on the host", solve))
+    print("phase 30: 5 kernels x 6 folds of %d labeled rows in %.3f s, "
+          "record %s" % (len(y) * 5 // 12, wall,
+                         SVM_ZOO_REFERENCE.relative_to(ROOT)))
+    t0 = time.perf_counter()
+    worst_out = worst_var = 0.0
+    for (tr, te), rec in zip(folds, ref):
+        got = baselines.pca_scale(x[tr], x[te], pca=PCA_COMPONENTS,
+                                  scale="scale", device=dev)
+        cpu = baselines.pca_scale(x[tr], x[te], pca=PCA_COMPONENTS,
+                                  scale="scale", device="cpu")
+        for g, c in zip(got, cpu):
+            err = np.abs(g - c).max() / (c.max() - c.min())
+            assert err <= PCA_RANGE_TOL, err
+            worst_out = max(worst_out, err)
+        var = baselines.pca_fit(x[tr], PCA_COMPONENTS, dev)[2].cpu().numpy()
+        rel = np.abs(var / np.asarray(rec["explained_variance"]) - 1).max()
+        assert rel <= PCA_VAR_RTOL, rel
+        worst_var = max(worst_var, rel)
+    print("phase 30: pca_scale(pca=%d, scale) on 6 folds of 6,000 x 1,200: "
+          "card vs CPU route max |delta| %.3g of the range (bar %g); "
+          "explained variance vs scikit-learn's full SVD in float64 max "
+          "rtol %.3g (bar %g); %.3f s with the CPU routes" % (
+              PCA_COMPONENTS, worst_out, PCA_RANGE_TOL, worst_var,
+              PCA_VAR_RTOL, time.perf_counter() - t0))
+
+
+def all_counts():
+    return (lstm_cuda.fwd_launches, lstm_cuda.bwd_launches,
+            lstm_cuda.ext_launches, lstm_cuda.adj_launches)
+
+
+def all_driven(fn):
+    """fn() with the four recurrence kernels' counts set to 0 just before
+    and read just after: (result, (fwd, bwd, bwd_ext, adj))."""
+    lstm_cuda.fwd_launches = lstm_cuda.bwd_launches = 0
+    lstm_cuda.ext_launches = lstm_cuda.adj_launches = 0
+    result = fn()
+    return result, all_counts()
+
+
+@contextlib.contextmanager
+def plain_recurrence():
+    """The port's biLSTM through the plain loop on any device: the route
+    the kernels are held to."""
+    bilstm = lstm.bilstm
+    lstm.bilstm = lambda p, xs, return_sequences=True: lstm.bilstm_reference(
+        p, xs, return_sequences)
+    try:
+        yield
+    finally:
+        lstm.bilstm = bilstm
+
+
+def critic_fn(params):
+    def fn(m):
+        return nets.dense(params["out"], vnets.bilstm_apply(
+            params["lstm"], m.unsqueeze(-1), return_sequences=False))
+    return fn
+
+
+def penalty_inputs(dev, folds, rows, seed):
+    """Real and fake rows (F, rows, T) with the critic's zero tail, eps."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xr, xf = (torch.randn((folds, rows, VARIANT_T), generator=gen,
+                          device=dev) for _ in range(2))
+    xr[..., 3 * FT_LEN:] = xf[..., 3 * FT_LEN:] = 0.0
+    return xr, xf, torch.rand((folds, rows, 1), generator=gen, device=dev)
+
+
+def input_grad_norms(params, xr, xf, eps):
+    """Each mixed row's norm of the gradient the penalty hinges."""
+    mixed = (eps * xr + (1 - eps) * xf).requires_grad_()
+    grad, = torch.autograd.grad(critic_fn(params)(mixed).mean(
+        dim=(-2, -1)).sum(), mixed)
+    return grad.norm(dim=-1)
+
+
+def penalty_grads(params, xr, xf, eps):
+    """The Petzka penalty (F,) and its gradients w.r.t. every parameter
+    (zero for the head's bias, which it does not reach)."""
+    p = tree.tree_map(lambda a: a.detach().requires_grad_(), params)
+    pen = losses.lipschitz_penalty(critic_fn(p), xr, xf, eps, petzka=True)
+    leaves = tree.leaves(p)
+    grads = torch.autograd.grad(pen.sum(), leaves, allow_unused=True)
+    return pen.detach(), [torch.zeros_like(a) if g is None else g
+                          for a, g in zip(leaves, grads)]
+
+
+def hold_grads(name, got, want, f64):
+    """Gradients of the kernels' route against the plain loop's at phase
+    16's bars, or, past them, no further from float64 (``f64()``, the plain
+    loop in float64) than twice the plain loop is. Returns the worst
+    max_abs_err and the notes of the float64 rule."""
+    worst, notes, g64 = 0.0, [], None
+    for i, (a, b) in enumerate(zip(got, want)):
+        err = (a - b).abs().max().item()
+        worst = max(worst, err)
+        if torch.allclose(a, b, rtol=LSTM_GRAD_RTOL, atol=LSTM_GRAD_ATOL):
+            continue
+        if g64 is None:
+            g64 = f64()
+        k64 = (a.double() - g64[i]).abs().max().item()
+        p64 = (b.double() - g64[i]).abs().max().item()
+        assert k64 <= max(2 * p64, LSTM_GRAD_ATOL), (name, i, err, k64, p64)
+        notes.append("leaf %d: %.3g vs plain, %.3g / %.3g from float64"
+                     % (i, err, k64, p64))
+    return worst, notes
+
+
+def scaled_head(params, xr, xf, eps, at_least=2.0):
+    """``params`` with the head's weights scaled so that every mixed row's
+    input-gradient norm is at least ``at_least`` (it is linear in them):
+    every row of the penalty active. Returns (params, scale)."""
+    with torch.enable_grad():
+        norms = input_grad_norms(params, xr, xf, eps)
+    scale = at_least / norms.min().item()
+    out = {**params["out"], "w": params["out"]["w"] * scale}
+    return {**params, "out": out}, scale
+
+
+def penalty_case(dev, folds, units, rows, seed):
+    """31(1)-(2): the penalty's parameter gradients at one biLSTM layer's
+    width through the kernels and the plain loop on the card."""
+    params, _, _ = lstm_case(dev, folds, 1, units, rows, False, seed)
+    xr, xf, eps = penalty_inputs(dev, folds, rows, seed)
+    params, scale = scaled_head(params, xr, xf, eps)
+    norms = input_grad_norms(params, xr, xf, eps)
+    assert (norms > 1).all(), norms.min()
+    (pen, got), counts = all_driven(lambda: penalty_grads(params, xr, xf,
+                                                          eps))
+    assert counts == (1, 0, 2, 1), counts
+    with plain_recurrence():
+        pen_p, want = penalty_grads(params, xr, xf, eps)
+        f64 = lambda: penalty_grads(  # noqa: E731
+            tree.tree_map(torch.Tensor.double, params), xr.double(),
+            xf.double(), eps.double())[1]
+        worst, notes = hold_grads("penalty U=%d" % units, got, want, f64)
+    check_close("penalty U=%d" % units, pen, pen_p, LSTM_GRAD_RTOL,
+                LSTM_GRAD_ATOL)
+    print("phase 31: penalty at %d folds x %d mixed rows, T=%d, U=%d, in 1, "
+          "final state (head x %.4g: every row's gradient norm >= %.3f): "
+          "penalty %s; kernel launches (fwd, bwd, bwd_ext, adj) %s; "
+          "parameter gradients vs the plain loop max_abs_err %r (rtol %g, "
+          "atol %g%s)" % (
+              folds, rows, VARIANT_T, units, scale, norms.min().item(),
+              ["%.4f" % v for v in pen.tolist()], counts, worst,
+              LSTM_GRAD_RTOL, LSTM_GRAD_ATOL,
+              "; past it: " + ", ".join(notes) if notes else ""))
+
+
+def timed_once(fn):
+    """(fn(), its milliseconds between two CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def second_order_bound(n_seq, steps, rows, units, kernel):
+    """The least time of a double-backward kernel's work, as
+    :func:`lstm_bound` counts it: the bytes its inputs and outputs must
+    move once over HBM's rate against its float32 operations over the
+    CUDA cores' peak. lstm_scan_bwd_ext with cotangents: zs, dzs (4U a
+    cell), c, dcs in and dz out; lstm_scan_adj: delta, zs (4U), c, e, k in,
+    e_bar, zs_bar (4U), c_bar out; a step's sums over wh (2 x 4U x U a
+    row) and ~25 (bwd_ext) or ~45 (adj) operations a unit."""
+    cells = n_seq * steps * rows
+    floats = {"bwd_ext": cells * (4 + 4 + 1 + 1 + 4) * units,
+              "adj": cells * (4 + 4 + 3 + 1 + 4 + 1) * units}[kernel]
+    floats += n_seq * (units * 4 * units + rows * units)
+    flops = cells * (8 * units * units
+                     + {"bwd_ext": 25, "adj": 45}[kernel] * units)
+    ops_s, bytes_s = flops / FP32_PEAK, 4 * floats / HBM_BYTES_S
+    return 1e3 * max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s
+                                       else "bytes")
+
+
+def second_order_times(dev, folds=6, rows=128, units=4, seed=31):
+    """31(3): the two kernels alone at the penalty's shape, on the tensors
+    of one forward and seeded cotangents: each held to its plain version
+    at phase 16's gradient bars (or the float64 rule), then timed with
+    CUDA events (20 launches back to back) in turns with the plain
+    version (one run each), beside the bound. lstm_scan_bwd_ext is timed
+    with cotangents entering (the second backward's call) and with its
+    carries stored (the recorded first backward's). Returns the JSON fields
+    of both kernels."""
+    n_seq = 2 * folds
+    params, x, _ = lstm_case(dev, folds, 1, units, rows, False, seed)
+    fwd, _ = lstm_kernel_calls(dev, params, x, units, rows, False)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rand = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    with torch.no_grad():
+        _, _, zs, c = fwd(None)
+        wh = lstm._both(params["lstm"])[1].reshape(n_seq, units, 4 * units)
+        dh_last = rand(n_seq, rows, units)
+        _, e, k = lstm_cuda.lstm_scan_bwd_ext(None, dh_last, zs, c, wh, 2,
+                                              carries=True)
+        i32 = dict(zs=zs, c=c, wh=wh, dh_last=dh_last, dzs=rand(*zs.shape),
+                   dcs=rand(*c.shape), delta=rand(*zs.shape), e=e, k=k)
+        i64 = {name: t.double() for name, t in i32.items()}
+        calls = {
+            "bwd_ext": lambda i, ext, adj: ext(
+                None, i["dh_last"], i["zs"], i["c"], i["wh"], 2,
+                dzs=i["dzs"], dcs=i["dcs"])[:1],
+            "bwd_ext carries": lambda i, ext, adj: ext(
+                None, i["dh_last"], i["zs"], i["c"], i["wh"], 2,
+                carries=True),
+            "adj": lambda i, ext, adj: adj(i["delta"], i["zs"], i["c"],
+                                           i["e"], i["k"], i["wh"], 2),
+        }
+        kernels = (lstm_cuda.lstm_scan_bwd_ext, lstm_cuda.lstm_scan_adj)
+        plains = (lstm_cuda.bwd_ext_reference, lstm_cuda.adj_reference)
+        fields = {}
+        for name, call in calls.items():
+            kernel = lambda: call(i32, *kernels)  # noqa: E731
+            plain = lambda: call(i32, *plains)  # noqa: E731
+            # in turns: plain (the run the kernel is held to), kernel,
+            # kernel, plain
+            want, first_ms = timed_once(plain)
+            err, notes = hold_grads("phase 31 " + name, kernel(), want,
+                                    lambda: call(i64, *plains))
+            kernel_ms, plain_ms = [], [first_ms]
+            kernel_ms.append(stream_ms(kernel))
+            kernel_ms.append(stream_ms(kernel))
+            plain_ms.append(stream_ms(plain, runs=1, warmup=0))
+            bound = second_order_bound(n_seq, VARIANT_T, rows, units,
+                                       name.split()[0])
+            ms, p_ms = statistics.median(kernel_ms), statistics.median(
+                plain_ms)
+            print("phase 31: %s at %d sequences x %d rows, T=%d, U=%d: "
+                  "kernel %.4f ms (%.1f ns a step; runs %s), plain %.4f ms "
+                  "(runs %s), bound %.4f ms (%s; the kernel at %.2f %%); "
+                  "max_abs_err vs plain %r%s" % (
+                      name, n_seq, rows, VARIANT_T, units, ms,
+                      1e6 * ms / VARIANT_T, ["%.4f" % v for v in kernel_ms],
+                      p_ms, ["%.1f" % v for v in plain_ms], *bound,
+                      100 * bound[0] / ms, err,
+                      " (past the bar: %s)" % ", ".join(notes) if notes
+                      else ""))
+            if name in ("bwd_ext", "adj"):
+                fields["lstm_scan_" + name] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=bound[0],
+                    bound_by=bound[1], library_ms=None)
+    return fields
+
+
+@contextlib.contextmanager
+def recorded(module, name, record):
+    """Wrap ``module.name`` so that each call's arguments and result are
+    passed to ``record`` first."""
+    fn = getattr(module, name)
+
+    def wrapped(*a, **k):
+        out = fn(*a, **k)
+        record(a, k, out)
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def petzka_disc_grads(state, xl, yl, xu, r, cfg):
+    """The gradients one ``disc_step`` takes (its Adam update skipped)."""
+    grads = []
+
+    def keep(grad_tree, opt, params, **kw):
+        grads.append(tree.leaves(grad_tree))
+        return params, opt
+
+    update = wgan.optim.update
+    wgan.optim.update = keep
+    try:
+        wgan.disc_step(state, xl, yl, xu, r, cfg)
+    finally:
+        wgan.optim.update = update
+    return grads[0]
+
+
+def petzka_step(dev, x2, y2, folds=6):
+    """31(4): one full-width critic update of ``disc_step`` with
+    ``petzka_lp=True`` (batch 128 of modality 2's rows, padded to T), the
+    head scaled so that the penalty is active on every row: the gradients
+    through the kernels against the plain loop's. Returns its launches."""
+    cfg = dataclasses.replace(wgan_grid.algorithm_config("iwganlstm", 1),
+                              petzka_lp=True)
+    bs = cfg.batch_size
+    gen = torch.Generator(device=dev).manual_seed(314)
+    state = wgan.init_state(wgan.init_params(gen, VARIANT_T, cfg, folds))
+    rows = torch.randint(0, len(y2), (3, folds, bs), generator=gen,
+                         device=dev)
+    x = (x2 - x2.mean(dim=0)) / x2.std(dim=0).clamp(min=1e-6)
+    xs = gan.pad_features(x[rows], 128)[0]
+    xl, xu, yl = xs[0], xs[1], y2[rows[0]].to(torch.int64)
+    r = wgan.draw_step(gen, folds, cfg)["disc"][0]
+    with torch.no_grad():
+        x_fake = vnets.small_generator_apply(state["gen"], r["z"])
+    disc, scale = scaled_head(state["disc"], xu, x_fake, r["eps"])
+    state = {**state, "disc": disc}
+    got, counts = all_driven(lambda: petzka_disc_grads(state, xl, yl, xu, r,
+                                                       cfg))
+    assert min(counts) > 0, counts
+    with plain_recurrence():
+        want = petzka_disc_grads(state, xl, yl, xu, r, cfg)
+        dbl = lambda t: tree.tree_map(torch.Tensor.double, t)  # noqa: E731
+        r64 = {k: v.double() if torch.is_tensor(v) else v
+               for k, v in r.items()}
+        f64 = lambda: petzka_disc_grads(  # noqa: E731
+            {**state, "disc": dbl(state["disc"]), "gen": dbl(state["gen"])},
+            xl.double(), yl, xu.double(), r64, cfg)
+        worst, notes = hold_grads("disc_step", got, want, f64)
+    print("phase 31: disc_step petzka_lp=True, %d folds x batch %d, T=%d "
+          "(head x %.4g: the penalty active on every row): kernel launches "
+          "(fwd, bwd, bwd_ext, adj) %s; the critic's gradients vs the plain "
+          "loop max_abs_err %r (rtol %g, atol %g%s)" % (
+              folds, bs, VARIANT_T, scale, counts, worst, LSTM_GRAD_RTOL,
+              LSTM_GRAD_ATOL,
+              "; past it: " + ", ".join(notes) if notes else ""))
+    return counts
+
+
+PETZKA_EPOCHS = 2
+
+
+def petzka_cell(x2, y2, epochs=PETZKA_EPOCHS):
+    """31(5): ``run_wgan_cell`` with ``iwganlstm_config(petzka_lp=True)`` at
+    full width: its errors, the share of critic updates (each fold's) with
+    the penalty active, the step time. No JAX record exists for it: the
+    errors are printed, not held. Returns its launches."""
+    cfg = dataclasses.replace(wgan_grid.algorithm_config("iwganlstm", epochs),
+                              petzka_lp=True)
+    active = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recorded(losses, "lipschitz_penalty",
+                  lambda a, k, out: active.append(out.detach() > 0)):
+        errs, counts = all_driven(lambda: wgan.run_wgan_cell(
+            x2, y2, 1.0, cfg=cfg, seed=0, device=x2.device))
+    wall = time.perf_counter() - t0
+    assert np.isfinite(errs).all() and errs.shape == (6,), errs
+    assert min(counts) > 0, counts
+    share = torch.stack(active).float().mean().item()
+    steps = len(active)
+    print("phase 31: run_wgan_cell iwganlstm petzka_lp=True, modality 2, "
+          "%d epochs, batch %d, seed 0: errors %s (mean %.4f; no record: "
+          "printed, not held); penalty active in %.1f %% of %d x 6 critic "
+          "updates; %.3f s, %.2f ms a step; kernel launches (fwd, bwd, "
+          "bwd_ext, adj) %s" % (
+              epochs, cfg.batch_size, ["%.4f" % e for e in errs],
+              errs.mean(), 100 * share, steps, wall, 1e3 * wall / steps,
+              counts))
+    return counts
+
+
+def double_backward_phase(dev, x2, y2):
+    """Phase 31. Returns (the driven paths' launches (fwd, bwd, bwd_ext,
+    adj), the JSON fields of lstm_scan_bwd_ext and lstm_scan_adj)."""
+    penalty_case(dev, 6, 4, 128, seed=29)
+    penalty_case(dev, 1, 16, 128, seed=30)
+    fields = second_order_times(dev)
+    launches = [a + b for a, b in zip(petzka_step(dev, x2, y2),
+                                      petzka_cell(x2, y2))]
+    return launches, fields
+
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; "
@@ -3282,6 +3787,17 @@ def main():
     collect_highest, collect_high = collect_phase(dev, clf_path)
     t_phase["25"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
 
+    # -- this slice: the paper figures, the SVM zoo and PCA, the double
+    # backward (before the block: 31 times its kernels)
+    plots_launches = plots_phase(dev)
+    t_phase["29"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
+    svm_zoo_phase(dev, x2, y2)
+    t_phase["30"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
+    second_launches, second_fields = double_backward_phase(dev, x2, y2)
+    t_phase["31"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
+    variant_launches = [a + b for a, b in zip(variant_launches + [0, 0],
+                                              second_launches)]
+
     # -- this slice: the bf16 shadows and the multi-rank paths ---------------
     # phase 26's cell and phase 27's ranks (the sweep, then 27(c)-(d); the
     # data-parallel cell) run in processes of their own, side by side,
@@ -3322,17 +3838,19 @@ def main():
         time.perf_counter() - script_t0))
     total = (launches + train_launches + fit_launches + table_launches
              + api_launches + collect_highest + sharded_launches
-             + cli_launches)
+             + cli_launches + plots_launches)
     high_total = high_24 + collect_high
     print("kernel launches on the driven paths: mel_power: serving %d, "
           "training (phases 6-7) %d, phase 9 %d, phases 12-15 %d, phase 21 "
-          "%d, phase 25 %d, phase 27(c) %d, phase 27(e) %d: %d; "
-          "mel_power_high: phase 24 %d, phase 25 %d: %d; lstm_scan_fwd / "
-          "lstm_scan_bwd (phases 17-18): %d / %d; phases 19, 20, 22 and 23 "
-          "launch neither kernel" % (
+          "%d, phase 25 %d, phase 27(c) %d, phase 27(e) %d, phase 29 %d: "
+          "%d; mel_power_high: phase 24 %d, phase 25 %d: %d; lstm_scan_fwd "
+          "/ lstm_scan_bwd / lstm_scan_bwd_ext / lstm_scan_adj (phases "
+          "17-18 and 31): %d / %d / %d / %d; phases 19, 20, 22, 23 and 30 "
+          "launch no kernel" % (
               launches, train_launches, fit_launches, table_launches,
               api_launches, collect_highest, sharded_launches, cli_launches,
-              total, high_24, collect_high, high_total, *variant_launches))
+              plots_launches, total, high_24, collect_high, high_total,
+              *variant_launches))
 
     print(gpu_line())
     lstm_source = "mrgan_tpu_torch/csrc/lstm_scan.cu"
@@ -3369,7 +3887,15 @@ def main():
         "launches": n,
         **lstm_fields[name],
     } for name, n in zip(("lstm_scan_fwd", "lstm_scan_bwd"),
-                         variant_launches)]}))
+                         variant_launches)] + [{
+        "name": name,
+        "route": "cuda",
+        "source": lstm_source,
+        "replaces": lstm_replaces,  # its second-order transpose
+        "launches": n,
+        **second_fields[name],
+    } for name, n in zip(("lstm_scan_bwd_ext", "lstm_scan_adj"),
+                         variant_launches[2:])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

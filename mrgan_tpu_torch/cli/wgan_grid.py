@@ -158,7 +158,8 @@ def run_fold(algorithm, x_tr, y_tr, x_te, y_te, fraction, pca, scale, kernel,
     the reference's seed 54321, training on ``device``. ``cfg`` overrides
     :func:`algorithm_config`'s; ``svm_solver`` picks the route of -a svm
     (``baselines.learn_svm``)."""
-    x_tr, x_te = baselines.pca_scale(x_tr, x_te, pca=pca, scale=scale)
+    x_tr, x_te = baselines.pca_scale(x_tr, x_te, pca=pca, scale=scale,
+                                     device=device)
     y_tr = np.asarray(y_tr, np.int32)
     rng = np.random.RandomState(54321)  # the reference's enforced seed
     if cfg is None:

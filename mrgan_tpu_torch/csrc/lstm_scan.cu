@@ -553,6 +553,239 @@ int dispatch_bwd(const BwdArgs& a, int n_seq, int units, int lanes, cudaStream_t
   }
 }
 
+// ---------------------------------------------------------------------------
+// The second order: what jax.grad of a penalty on the critic's input
+// gradient (the Petzka Lipschitz penalty, mrgan_tpu/models/losses.py:90,
+// mrgan_tpu/variants/wgan.py:162-166) runs through the lax.scan's
+// transpose. The first backward (lstm_scan_bwd) is linear in the output
+// gradients but not in the saved gates and cells, so its own VJP is two
+// passes:
+// - lstm_scan_adj walks FORWARD in time: given a cotangent D on dz, it
+//   carries the adjoints of the backward's two carries, the output
+//   gradient e_t = dh_t + dz_{t+1} wh^T and the cell gradient k_t = k_{t+1}
+//   f_{t+1} + e_t o_t (1 - tanh^2 c_t), and yields the cotangent of e (the
+//   incoming dh, and through a product outside the kernel the recurrent
+//   weights) and per-step cotangents on the saved gates and cells, whose
+//   terms need tanh''; hard_sigmoid'' is 0;
+// - lstm_scan_bwd_ext is the backward again, with those per-step
+//   cotangents added where the gates and cells enter it (it takes them
+//   back through the forward recurrence), and, when the first backward is
+//   itself to be differentiated, storing e and k for lstm_scan_adj.
+// Both are the first version's simple design: one warp a block, U lanes a
+// row (one unit a lane: 8 rows a warp at U = 4, 2 at U = 16), each lane's
+// carries and its column or row of wh in registers, the steps' inputs read
+// from global memory in the loop. Without cotangents lstm_scan_bwd_ext
+// computes lstm_scan_bwd's sums in its order (its U-lanes variant's): its
+// dz is lstm_scan_bwd's bit for bit. What bounds them: as lstm_scan_bwd,
+// a step's latency at few rows and the bytes at many; these read each
+// step's inputs on the chain, unstaged.
+// ---------------------------------------------------------------------------
+
+struct BwdExtArgs {
+  const float* dh_seq;   // (S, T, B, U) or null
+  const float* dh_last;  // (S, B, U) or null
+  const float* zs;
+  const float* c_seq;
+  const float* wh;
+  const float* dzs;      // (S, T, B, 4U) or null: cotangents on the saved gates
+  const float* dcs;      // (S, T, B, U) or null: cotangents on the cells
+  int steps, rows, dirs, reverse;
+  float* dz;
+  float* e_seq;          // (S, T, B, U) or null (then so is k_seq): each
+  float* k_seq;          // step's output gradient e and cell gradient k
+};
+
+template <int U>
+__global__ void __launch_bounds__(kWarp)
+lstm_scan_bwd_ext(const BwdExtArgs a) {
+  constexpr int G = 4 * U, RPB = kWarp / U, NPG = 2;
+  const int lane = threadIdx.x;
+  const int r = lane / U, u = lane % U;
+  const int s = blockIdx.y;
+  const int T = a.steps, B = a.rows;
+  const int row = min((int)blockIdx.x * RPB + r, B - 1);  // as lstm_scan_fwd
+  const bool rev = a.dirs == 2 ? (s & 1) != 0 : a.reverse != 0;
+
+  float w[4][U];  // w[g][m] = wh[s][u][g*U + m]: this lane's row of wh
+  const float* whs = a.wh + (size_t)s * U * G;
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int m = 0; m < U; ++m) w[g][m] = whs[u * G + g * U + m];
+  const size_t useq = (size_t)s * T * B * U, gseq = (size_t)s * T * B * G;
+  auto uo = [&](int t) { return useq + ((size_t)t * B + row) * U + u; };
+  auto go = [&](int t) { return gseq + ((size_t)t * B + row) * G + u; };
+
+  float dh_rec = a.dh_last ? a.dh_last[((size_t)s * B + row) * U + u] : 0.0f;
+  float dc = 0.0f;
+  float c_t = a.c_seq[uo(time_at(T - 1, T, rev))];
+  for (int p = T - 1; p >= 0; --p) {
+    const int t = time_at(p, T, rev);
+    const size_t ou = uo(t), og = go(t);
+    const float zi = a.zs[og], zf = a.zs[og + U], tg = a.zs[og + 2 * U],
+                zo = a.zs[og + 3 * U];
+    const float c_prev = p > 0 ? a.c_seq[uo(time_at(p - 1, T, rev))] : 0.0f;
+    const float dh = a.dh_seq ? __fadd_rn(dh_rec, a.dh_seq[ou]) : dh_rec;
+    const float tc = tanhf(c_t);
+    if (a.dcs) dc = __fadd_rn(dc, a.dcs[ou]);
+    dc = __fadd_rn(dc, __fmul_rn(__fmul_rn(dh, hard_sigmoid(zo)),
+                                 __fsub_rn(1.0f, __fmul_rn(tc, tc))));
+    float d[4];
+    d[0] = __fmul_rn(__fmul_rn(dc, tg), hard_sigmoid_grad(zi));
+    d[1] = __fmul_rn(__fmul_rn(dc, c_prev), hard_sigmoid_grad(zf));
+    float dg = __fmul_rn(dc, hard_sigmoid(zi));
+    d[3] = __fmul_rn(__fmul_rn(dh, tc), hard_sigmoid_grad(zo));
+    if (a.dzs) {  // the cotangent on tanh(g) enters before its derivative
+      d[0] = __fadd_rn(d[0], a.dzs[og]);
+      d[1] = __fadd_rn(d[1], a.dzs[og + U]);
+      dg = __fadd_rn(dg, a.dzs[og + 2 * U]);
+      d[3] = __fadd_rn(d[3], a.dzs[og + 3 * U]);
+    }
+    d[2] = __fmul_rn(dg, __fsub_rn(1.0f, __fmul_rn(tg, tg)));
+    if (a.e_seq) {
+      a.e_seq[ou] = dh;
+      a.k_seq[ou] = dc;
+    }
+    dc = __fmul_rn(dc, hard_sigmoid(zf));
+    c_t = c_prev;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) a.dz[og + g * U] = d[g];
+    // dh of the step before: dz_t @ wh^T for this lane's unit, in
+    // lstm_scan_bwd's order
+    if constexpr (U == 4) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int m = 0; m < U; ++m)
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          acc = fmaf(__shfl_sync(0xffffffffu, d[g], m, U), w[g][m], acc);
+      dh_rec = acc;
+    } else {
+      float acc[4][NPG];
+#pragma unroll
+      for (int m = 0; m < U; ++m)
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const float dm = __shfl_sync(0xffffffffu, d[g], m, U);
+          float& ac = acc[g][m % NPG];
+          ac = m < NPG ? __fmul_rn(dm, w[g][m]) : fmaf(dm, w[g][m], ac);
+        }
+      float pg[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        pg[g] = acc[g][0];
+#pragma unroll
+        for (int k = 1; k < NPG; ++k) pg[g] = __fadd_rn(pg[g], acc[g][k]);
+      }
+      dh_rec = __fadd_rn(__fadd_rn(pg[0], pg[1]), __fadd_rn(pg[2], pg[3]));
+    }
+  }
+}
+
+struct AdjArgs {
+  const float* delta;  // (S, T, B, 4U): the cotangent on dz
+  const float* zs;
+  const float* c_seq;
+  const float* e_seq;  // (S, T, B, U): lstm_scan_bwd_ext's carries
+  const float* k_seq;
+  const float* wh;
+  int steps, rows, dirs, reverse;
+  float* e_bar;        // (S, T, B, U): the cotangent on e (so on dh_seq)
+  float* zs_bar;       // (S, T, B, 4U): on the saved zi, zf, tanh(g), zo
+  float* c_bar;        // (S, T, B, U): on the cells
+};
+
+template <int U>
+__global__ void __launch_bounds__(kWarp)
+lstm_scan_adj(const AdjArgs a) {
+  constexpr int G = 4 * U, RPB = kWarp / U;
+  constexpr int NP = U >= 16 ? 4 : 1;  // partial sums of e_bar @ wh
+  const int lane = threadIdx.x;
+  const int r = lane / U, u = lane % U;
+  const int s = blockIdx.y;
+  const int T = a.steps, B = a.rows;
+  const int row = min((int)blockIdx.x * RPB + r, B - 1);
+  const bool rev = a.dirs == 2 ? (s & 1) != 0 : a.reverse != 0;
+
+  float w[4][U];  // w[g][m] = wh[s][m][g*U + u]: this lane's gate columns
+  const float* whs = a.wh + (size_t)s * U * G;
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int m = 0; m < U; ++m) w[g][m] = whs[m * G + g * U + u];
+  const size_t useq = (size_t)s * T * B * U, gseq = (size_t)s * T * B * G;
+  auto uo = [&](int t) { return useq + ((size_t)t * B + row) * U + u; };
+  auto go = [&](int t) { return gseq + ((size_t)t * B + row) * G + u; };
+
+  // the adjoints of e_{p-1} and k_{p-1}, and the cell cotangent of step
+  // p-1, which step p completes (c_{p-1} enters its forget-gate term)
+  float e_bar = 0.0f, k_bar = 0.0f, c_pending = 0.0f;
+  for (int p = 0; p < T; ++p) {
+    const int t = time_at(p, T, rev);
+    const size_t ou = uo(t), og = go(t);
+    float eall[U];
+#pragma unroll
+    for (int m = 0; m < U; ++m) eall[m] = __shfl_sync(0xffffffffu, e_bar, m, U);
+    float D[4];  // the whole cotangent on dz_p: delta, and via e_{p-1}
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const float dl = a.delta[og + g * U];
+      if constexpr (NP == 1) {
+        D[g] = dl;
+#pragma unroll
+        for (int m = 0; m < U; ++m) D[g] = fmaf(eall[m], w[g][m], D[g]);
+      } else {
+        float part[NP];
+#pragma unroll
+        for (int m = 0; m < NP; ++m) part[m] = __fmul_rn(eall[m], w[g][m]);
+#pragma unroll
+        for (int m = NP; m < U; ++m) part[m % NP] = fmaf(eall[m], w[g][m], part[m % NP]);
+        D[g] = __fadd_rn(dl, __fadd_rn(__fadd_rn(part[0], part[1]),
+                                       __fadd_rn(part[2], part[3])));
+      }
+    }
+    const float zi = a.zs[og], zf = a.zs[og + U], tg = a.zs[og + 2 * U],
+                zo = a.zs[og + 3 * U];
+    const float c_prev = p > 0 ? a.c_seq[uo(time_at(p - 1, T, rev))] : 0.0f;
+    const float e = a.e_seq[ou], k = a.k_seq[ou];
+    const float tc = tanhf(a.c_seq[ou]);
+    const float dtc = 1.0f - tc * tc, dtg = 1.0f - tg * tg;
+    const float si = hard_sigmoid(zi), sf = hard_sigmoid(zf), so = hard_sigmoid(zo);
+    const float gi = hard_sigmoid_grad(zi), gf = hard_sigmoid_grad(zf),
+                gout = hard_sigmoid_grad(zo);
+    const float kb = k_bar * sf + D[0] * tg * gi + D[1] * c_prev * gf +
+                     D[2] * si * dtg;
+    const float eb = kb * so * dtc + D[3] * tc * gout;
+    a.zs_bar[og] = D[2] * k * dtg * gi;
+    a.zs_bar[og + U] = k_bar * k * gf;
+    a.zs_bar[og + 2 * U] = D[0] * k * gi - 2.0f * tg * D[2] * k * si;
+    a.zs_bar[og + 3 * U] = kb * e * dtc * gout;
+    if (p > 0) a.c_bar[uo(time_at(p - 1, T, rev))] = c_pending + D[1] * k * gf;
+    c_pending = dtc * (D[3] * e * gout - 2.0f * tc * kb * e * so);
+    a.e_bar[ou] = eb;
+    e_bar = eb;
+    k_bar = kb;
+  }
+  a.c_bar[uo(time_at(T - 1, T, rev))] = c_pending;
+}
+
+template <int U>
+int launch_bwd_ext(const BwdExtArgs& a, int n_seq, cudaStream_t stream) {
+  auto kernel = lstm_scan_bwd_ext<U>;
+  const dim3 grid((a.rows + kWarp / U - 1) / (kWarp / U), n_seq);
+  kernel<<<grid, kWarp, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int U>
+int launch_adj(const AdjArgs& a, int n_seq, cudaStream_t stream) {
+  auto kernel = lstm_scan_adj<U>;
+  const dim3 grid((a.rows + kWarp / U - 1) / (kWarp / U), n_seq);
+  kernel<<<grid, kWarp, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+
 }  // namespace
 
 // The forward. The input is x, wx and b (in = 1: the projection is fused)
@@ -579,4 +812,43 @@ extern "C" int mrgan_lstm_scan_bwd(const float* dh_seq, const float* dh_last,
                                    int dirs, int reverse, float* dz, void* stream) {
   const BwdArgs a{dh_seq, dh_last, zs, c_seq, wh, steps, rows, dirs, reverse, dz};
   return dispatch_bwd(a, n_seq, units, lanes, static_cast<cudaStream_t>(stream));
+}
+
+// The backward with per-step cotangents on the saved gates (dzs) and cells
+// (dcs), either or both null, and, with e_seq and k_seq given (both or
+// neither), its carries stored. Returns a cudaError_t, or -1 for a unit
+// count the kernels are not compiled for (4 and 16).
+extern "C" int mrgan_lstm_scan_bwd_ext(const float* dh_seq, const float* dh_last,
+                                       const float* zs, const float* c_seq,
+                                       const float* wh, const float* dzs,
+                                       const float* dcs, int n_seq, int steps,
+                                       int rows, int units, int dirs, int reverse,
+                                       float* dz, float* e_seq, float* k_seq,
+                                       void* stream) {
+  const BwdExtArgs a{dh_seq, dh_last, zs, c_seq, wh, dzs, dcs, steps, rows,
+                     dirs, reverse, dz, e_seq, k_seq};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (units) {
+    case 4: return launch_bwd_ext<4>(a, n_seq, st);
+    case 16: return launch_bwd_ext<16>(a, n_seq, st);
+    default: return -1;
+  }
+}
+
+// The forward-time adjoint of the backward, from a cotangent on dz and the
+// backward's carries. Returns as mrgan_lstm_scan_bwd_ext does.
+extern "C" int mrgan_lstm_scan_adj(const float* delta, const float* zs,
+                                   const float* c_seq, const float* e_seq,
+                                   const float* k_seq, const float* wh, int n_seq,
+                                   int steps, int rows, int units, int dirs,
+                                   int reverse, float* e_bar, float* zs_bar,
+                                   float* c_bar, void* stream) {
+  const AdjArgs a{delta, zs, c_seq, e_seq, k_seq, wh, steps, rows, dirs, reverse,
+                  e_bar, zs_bar, c_bar};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (units) {
+    case 4: return launch_adj<4>(a, n_seq, st);
+    case 16: return launch_adj<16>(a, n_seq, st);
+    default: return -1;
+  }
 }

@@ -11,12 +11,14 @@ Layout: S = folds x directions independent sequences. The input projection
 time-major; the recurrence then adds ``h @ wh`` step by step.
 
 On a CPU tensor the recurrence is the plain loop ``lstm_scan_reference``
-under autograd (so a double backward, as the Petzka penalty needs, works).
-On a CUDA tensor it is ``LstmScan``, whose forward and backward are the two
-hand-written kernels of ``csrc/lstm_scan.cu`` (``ops/lstm_cuda.py``); the
-forward fuses the input projection where the input has one channel, and
-the input and weight gradients are plain products of the backward's
-per-step gate gradients.
+under autograd. On a CUDA tensor it is ``LstmScan``, whose forward and
+backward are the hand-written kernels of ``csrc/lstm_scan.cu``
+(``ops/lstm_cuda.py``); the forward fuses the input projection where the
+input has one channel, and the input and weight gradients are plain
+products of the backward's per-step gate gradients. Both are twice
+differentiable, as the Petzka penalty needs: ``LstmScan``'s second
+backward runs two more kernels, the backward's adjoint forward in time and
+the backward with per-step cotangents entering.
 """
 
 import torch
@@ -31,10 +33,12 @@ def hard_sigmoid(x):
 
 
 def hard_sigmoid_grad(z):
-    """d hard_sigmoid / dz: 0.2 inside, 0.1 on a clip edge, 0 outside."""
+    """d hard_sigmoid / dz: 0.2 inside, 0.1 on a clip edge, 0 outside, in
+    z's type."""
     y = 0.2 * z + 0.5
-    inside = torch.where((y > 0) & (y < 1), 0.2, 0.0)
-    return torch.where((y == 0) | (y == 1), 0.1, inside).to(z.dtype)
+    inside = torch.where((y > 0) & (y < 1), z.new_tensor(0.2),
+                         z.new_tensor(0.0))
+    return torch.where((y == 0) | (y == 1), z.new_tensor(0.1), inside)
 
 
 def reverse_mask(reverse, n_seq, dirs=1, device=None):
@@ -105,61 +109,109 @@ def _previous(h, rev):
     return torch.where(rev.view(-1, 1, 1, 1), up, down)
 
 
-class LstmScan(torch.autograd.Function):
-    """The recurrence of F folds x ``dirs`` directions through the kernels.
+def _seq_weights(wh):
+    """(F, dirs, U, 4U) -> (S, U, 4U)."""
+    return wh.reshape(-1, *wh.shape[-2:])
 
-    Inputs: ``x`` (F, T, B, in) time-major, ``wx`` (F, dirs, in, 4U), ``wh``
-    (F, dirs, U, 4U), ``b`` (F, dirs, 4U). Output: (F, dirs, T, B, U), or the
-    final states (F, dirs, B, U). Where in = 1 the forward kernel takes x,
-    wx and b and projects each step itself; otherwise ``xw = x @ wx + b`` is
-    one ``torch.matmul``. The forward kernel saves each step's gates and
-    cell; the backward kernel walks them back into the gate gradients dz
-    (F, dirs, T, B, 4U), and dx, dwx, dwh and db are products of dz
-    (``torch.einsum`` and ``torch.bmm``: fixed order, no atomics; the
-    weight gradients summed over each step's rows, then over the steps).
-    Not twice differentiable.
-    On a CPU tensor the wrappers run the kernels' plain versions."""
+
+def _step_sums(a, dz):
+    """sum over the steps of a_{t-1}^T dz_t per sequence, in each
+    sequence's own order: (S, T, B, U) and (S, T, B, 4U) -> (S, U, 4U),
+    summed over each step's rows, then over the steps (the recurrent
+    weights' gradient, with a = h, and its adjoint's, with a = e_bar)."""
+    n_seq, steps, rows, units = a.shape
+    per_step = torch.bmm(a.reshape(-1, rows, units).transpose(1, 2),
+                         dz.reshape(-1, rows, 4 * units))
+    return per_step.view(n_seq, steps, units, 4 * units).sum(dim=1)
+
+
+class _ScanBackward(torch.autograd.Function):
+    """The backward kernel as a function of its inputs: (dh_seq, dh_last,
+    zs, c, wh) -> dz, with optional per-step cotangents ``dzs`` / ``dcs``
+    entering (what the forward's backward receives in a double backward).
+    Without them, and unless ``twice`` (it is itself to be differentiated),
+    it is ``lstm_scan_bwd``; otherwise ``lstm_scan_bwd_ext``, which with
+    ``twice`` also stores the carries its own backward, ``lstm_scan_adj``,
+    reads."""
 
     @staticmethod
-    def forward(ctx, x, wx, wh, b, dirs, reverse, return_sequences):
+    def forward(ctx, dh_seq, dh_last, zs, c, wh, dzs, dcs, dirs, reverse,
+                twice):
         from . import lstm_cuda
 
-        n_folds, steps, rows, in_dim = x.shape
-        units = wh.shape[-2]
-        n_seq = n_folds * dirs
-        save = any(ctx.needs_input_grad[:4])
-        if in_dim == 1:
-            inputs = dict(xw=None, x=x.view(n_folds, steps, rows),
-                          wx=wx.reshape(n_seq, 4 * units).contiguous(),
-                          b=b.reshape(n_seq, 4 * units).contiguous())
-        else:
-            xw = (torch.matmul(x.unsqueeze(1), wx.unsqueeze(2))
-                  + b[:, :, None, None])
-            inputs = dict(xw=xw.reshape(n_seq, steps, rows, 4 * units))
+        ctx.set_materialize_grads(False)
+        if dzs is None and dcs is None and not twice:
+            return lstm_cuda.lstm_scan_bwd(dh_seq, dh_last, zs, c, wh, dirs,
+                                           reverse)
+        dz, e, k = lstm_cuda.lstm_scan_bwd_ext(
+            dh_seq, dh_last, zs, c, wh, dirs, reverse, dzs=dzs, dcs=dcs,
+            carries=twice)
+        if twice:
+            if dzs is not None or dcs is not None:
+                raise NotImplementedError("the recurrence is twice "
+                                          "differentiable, not three times")
+            ctx.save_for_backward(zs, c, wh, e, k, dz)
+            ctx.dirs, ctx.reverse = dirs, reverse
+        return dz
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, ddz):
+        from . import lstm_cuda
+
+        if ddz is None:
+            return (None,) * 10
+        zs, c, wh, e, k, dz = ctx.saved_tensors
+        e_bar, zs_bar, c_bar = lstm_cuda.lstm_scan_adj(
+            ddz.contiguous(), zs, c, e, k, wh, ctx.dirs, ctx.reverse)
+        rev = reverse_mask(ctx.reverse, zs.shape[0], ctx.dirs, zs.device)
+        need = ctx.needs_input_grad
+        return (e_bar if need[0] else None,
+                processing_order(e_bar, rev)[:, -1] if need[1] else None,
+                zs_bar, c_bar,
+                _step_sums(_previous(e_bar, rev), dz) if need[4] else None,
+                None, None, None, None, None)
+
+
+class _ScanForward(torch.autograd.Function):
+    """The forward kernel with everything it saves as outputs: (x, wx, wh,
+    b) -> (h, h_last, zs, c), S = F x dirs sequences. Its backward runs
+    :class:`_ScanBackward` and takes dx, dwx, dwh and db as products of dz
+    (``torch.einsum`` and ``torch.bmm``: fixed order, no atomics), all of
+    which autograd differentiates again: under ``create_graph`` the
+    backward is recorded, and its gradient reaches the saved gates and
+    cells as cotangents on these outputs, which the backward then takes in
+    (``lstm_scan_bwd_ext``)."""
+
+    @staticmethod
+    def forward(ctx, x, wx, wh, b, dirs, reverse):
+        from . import lstm_cuda
+
+        ctx.set_materialize_grads(False)
         h, h_last, zs, c = lstm_cuda.lstm_scan_fwd(
-            wh=wh.reshape(n_seq, units, 4 * units), dirs=dirs,
-            reverse=reverse, sequences=return_sequences or save, save=save,
-            **inputs)
+            wh=_seq_weights(wh), dirs=dirs, reverse=reverse,
+            **_fwd_inputs(x, wx, b, dirs))
         ctx.dirs, ctx.reverse = dirs, reverse
-        ctx.return_sequences = return_sequences
-        if save:
-            ctx.save_for_backward(x, wx, wh, h, zs, c)
-        if return_sequences:
-            return h.view(n_folds, dirs, steps, rows, units)
-        return h_last.view(n_folds, dirs, rows, units)
+        ctx.save_for_backward(x, wx, wh, h, zs, c)
+        return h, h_last, zs, c
 
     @staticmethod
-    def backward(ctx, grad):
-        from . import lstm_cuda
-
+    def backward(ctx, dh, dh_last, dzs, dcs):
         x, wx, wh, h, zs, c = ctx.saved_tensors
         n_seq, steps, rows, units = h.shape
         n_folds, dirs = wx.shape[:2]
-        grad = grad.contiguous().view(n_seq, -1, rows, units)
-        dz = lstm_cuda.lstm_scan_bwd(
-            grad if ctx.return_sequences else None,
-            None if ctx.return_sequences else grad[:, 0],
-            zs, c, wh.reshape(n_seq, units, 4 * units), dirs, ctx.reverse)
+        if dh is None and dh_last is None and dzs is None and dcs is None:
+            return (None,) * 6
+        # under create_graph this backward is recorded, to be differentiated
+        twice = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (dh, dh_last, zs, c, wh)
+            if t is not None)
+        dz = _ScanBackward.apply(
+            None if dh is None else dh.contiguous(),
+            None if dh_last is None else dh_last.contiguous(), zs, c,
+            _seq_weights(wh), None if dzs is None else dzs.contiguous(),
+            None if dcs is None else dcs.contiguous(), dirs, ctx.reverse,
+            twice)
         dz5 = dz.view(n_folds, dirs, steps, rows, 4 * units)
         dx = dwx = dwh = db = None
         if ctx.needs_input_grad[0]:
@@ -170,14 +222,58 @@ class LstmScan(torch.autograd.Function):
             dwx = torch.einsum("ftbi,fdtbg->fdtig", x, dz5).sum(dim=2)
         if ctx.needs_input_grad[2]:
             rev = reverse_mask(ctx.reverse, n_seq, dirs, h.device)
-            per_step = torch.bmm(
-                _previous(h, rev).view(-1, rows, units).transpose(1, 2),
-                dz.view(-1, rows, 4 * units))
-            dwh = per_step.view(n_folds, dirs, steps, units, 4 * units).sum(
-                dim=2)
+            dwh = _step_sums(_previous(h, rev), dz).view(wh.shape)
         if ctx.needs_input_grad[3]:
             db = dz5.sum(dim=3).sum(dim=2)
-        return dx, dwx, dwh, db, None, None, None
+        return dx, dwx, dwh, db, None, None
+
+
+def _fwd_inputs(x, wx, b, dirs):
+    """The forward kernel's input: x, wx and b where in = 1 (it projects
+    each step itself), else ``xw = x @ wx + b`` by one ``torch.matmul``."""
+    n_folds, steps, rows, in_dim = x.shape
+    gates = wx.shape[-1]
+    if in_dim == 1:
+        return dict(xw=None, x=x.view(n_folds, steps, rows),
+                    wx=wx.reshape(n_folds * dirs, gates).contiguous(),
+                    b=b.reshape(n_folds * dirs, gates).contiguous())
+    xw = torch.matmul(x.unsqueeze(1), wx.unsqueeze(2)) + b[:, :, None, None]
+    return dict(xw=xw.reshape(n_folds * dirs, steps, rows, gates))
+
+
+class LstmScan:
+    """The recurrence of F folds x ``dirs`` directions through the kernels.
+
+    ``LstmScan.apply(x, wx, wh, b, dirs, reverse, return_sequences)``:
+    ``x`` (F, T, B, in) time-major, ``wx`` (F, dirs, in, 4U), ``wh`` (F,
+    dirs, U, 4U), ``b`` (F, dirs, 4U). Output: (F, dirs, T, B, U), or the
+    final states (F, dirs, B, U). Where in = 1 the forward kernel takes x,
+    wx and b and projects each step itself; otherwise ``xw = x @ wx + b``
+    is one ``torch.matmul``. With a gradient to take, the forward kernel
+    saves each step's gates and cell; the backward kernel walks them back
+    into the gate gradients dz (S, T, B, 4U), and dx, dwx, dwh and db are
+    products of dz. Twice differentiable: under ``create_graph`` the
+    backward is recorded, and a second backward runs ``lstm_scan_adj`` and
+    ``lstm_scan_bwd_ext`` (``ops/lstm_cuda.py``). On a CPU tensor the
+    wrappers run the kernels' plain versions."""
+
+    @staticmethod
+    def apply(x, wx, wh, b, dirs, reverse, return_sequences):
+        from . import lstm_cuda
+
+        n_folds, steps, rows, _ = x.shape
+        units = wh.shape[-2]
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x, wx, wh, b)):
+            h, h_last, _, _ = _ScanForward.apply(x, wx, wh, b, dirs, reverse)
+        else:
+            h, h_last, _, _ = lstm_cuda.lstm_scan_fwd(
+                wh=_seq_weights(wh), dirs=dirs, reverse=reverse,
+                sequences=return_sequences, save=False,
+                **_fwd_inputs(x, wx, b, dirs))
+        if return_sequences:
+            return h.view(n_folds, dirs, steps, rows, units)
+        return h_last.view(n_folds, dirs, rows, units)
 
 
 def _layer(wx, wh, b, xs, dirs, reverse, return_sequences, plain):

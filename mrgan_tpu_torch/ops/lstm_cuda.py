@@ -14,11 +14,19 @@ and fuses the input projection: ``xw`` is never made. Each kernel is compiled fo
 (``default_lanes``), or takes ``lanes=`` to force one. All of them compute
 the same sums in the same order.
 
+A double backward (the Petzka penalty with the biLSTM critic) runs two
+more kernels of the same source, the first version's simple design (U
+lanes a row): ``lstm_scan_adj``, the backward's own VJP, a recurrence
+forward in time over the adjoints of the backward's carries; and
+``lstm_scan_bwd_ext``, the backward with per-step cotangents on the saved
+gates and cells added (and its carries stored for ``lstm_scan_adj``).
+
 Built like ``ops/mel_cuda.py``: ``nvcc`` for ``sm_90a`` into
 ``build/mrgan_tpu_torch/`` at first use, a plain C entry point per kernel,
 loaded with ``ctypes``. A CPU tensor takes the plain version; a CUDA tensor
-launches the kernel or raises. ``fwd_launches`` / ``bwd_launches`` count
-the launches.
+launches the kernel or raises. ``fwd_launches`` / ``bwd_launches`` / ``ext_launches`` /
+``adj_launches`` count the launches. On the CPU the plain versions also
+take float64 (every tensor of a call in one type), for gradient checks.
 """
 
 import ctypes
@@ -41,6 +49,8 @@ UNITS = tuple(LANES)
 
 fwd_launches = 0   # lstm_scan_fwd launches since the count was last set to 0
 bwd_launches = 0   # lstm_scan_bwd launches since the count was last set to 0
+ext_launches = 0   # lstm_scan_bwd_ext launches, likewise
+adj_launches = 0   # lstm_scan_adj launches, likewise
 build_log = ""     # nvcc's output (-Xptxas -v) from the build, if this process built
 _lib = None
 
@@ -74,7 +84,11 @@ def build():
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.mrgan_lstm_scan_fwd.argtypes = [vp] * 5 + [i32] * 7 + [vp] * 5
     lib.mrgan_lstm_scan_bwd.argtypes = [vp] * 5 + [i32] * 7 + [vp] * 2
-    lib.mrgan_lstm_scan_fwd.restype = lib.mrgan_lstm_scan_bwd.restype = i32
+    lib.mrgan_lstm_scan_bwd_ext.argtypes = [vp] * 7 + [i32] * 6 + [vp] * 4
+    lib.mrgan_lstm_scan_adj.argtypes = [vp] * 6 + [i32] * 6 + [vp] * 4
+    for fn in (lib.mrgan_lstm_scan_fwd, lib.mrgan_lstm_scan_bwd,
+               lib.mrgan_lstm_scan_bwd_ext, lib.mrgan_lstm_scan_adj):
+        fn.restype = i32
     _lib = lib
     return lib
 
@@ -91,9 +105,17 @@ def default_lanes(units, n_seq, rows):
     return 16
 
 
-def _check(name, x, shape=None):
-    if x.dtype != torch.float32:
-        raise TypeError("%s must be float32, got %s" % (name, x.dtype))
+def _dtype(ref):
+    """The type every tensor of a call takes: float32, or float64 where the
+    call's reference input is a float64 CPU tensor (the plain versions)."""
+    if ref.device.type == "cpu" and ref.dtype == torch.float64:
+        return torch.float64
+    return torch.float32
+
+
+def _check(name, x, shape=None, dtype=torch.float32):
+    if x.dtype != dtype:
+        raise TypeError("%s must be %s, got %s" % (name, dtype, x.dtype))
     if not x.is_contiguous():
         raise ValueError("%s must be contiguous" % name)
     if shape is not None and tuple(x.shape) != tuple(shape):
@@ -138,7 +160,8 @@ def _shapes(xw, wh, dirs, x=None, wx=None, b=None):
     if xw is not None:
         if x is not None or wx is not None or b is not None:
             raise ValueError("give xw, or x with wx and b, not both")
-        _check("xw", xw)
+        dtype = _dtype(xw)
+        _check("xw", xw, dtype=dtype)
         if xw.dim() != 4 or xw.shape[-1] % 4:
             raise ValueError("xw must be (S, T, B, 4U), got %s"
                              % (tuple(xw.shape),))
@@ -149,19 +172,20 @@ def _shapes(xw, wh, dirs, x=None, wx=None, b=None):
     else:
         if x is None or wx is None or b is None:
             raise ValueError("the input is xw, or x with wx and b")
-        _check("x", x)
+        dtype = _dtype(x)
+        _check("x", x, dtype=dtype)
         if x.dim() != 3:
             raise ValueError("x must be (F, T, B), got %s" % (tuple(x.shape),))
         n_folds, steps, rows = x.shape
         n_seq = n_folds * dirs
-        _check("wx", wx)
+        _check("wx", wx, dtype=dtype)
         if wx.dim() != 2 or wx.shape[0] != n_seq or wx.shape[1] % 4:
             raise ValueError("wx must be (S=%d, 4U), got %s"
                              % (n_seq, tuple(wx.shape)))
         gates = wx.shape[1]
-        _check("b", b, (n_seq, gates))
+        _check("b", b, (n_seq, gates), dtype)
         ref = x
-    _check("wh", wh, (n_seq, gates // 4, gates))
+    _check("wh", wh, (n_seq, gates // 4, gates), dtype)
     _same_device(ref, wh=wh, wx=wx, b=b)
     return n_seq, steps, rows, gates // 4
 
@@ -243,20 +267,27 @@ def lstm_scan_fwd(xw, wh, dirs, reverse=False, sequences=True, save=True, *,
     return h, h_last, zs, c
 
 
-def bwd_reference(dh_seq, dh_last, zs, c, wh, dirs, reverse=False):
-    """The plain version of ``lstm_scan_bwd``: the same walk back through
-    time as a Python loop."""
+def bwd_ext_reference(dh_seq, dh_last, zs, c, wh, dirs, reverse=False,
+                      dzs=None, dcs=None, carries=False):
+    """The plain version of ``lstm_scan_bwd_ext`` (and, without ``dzs``,
+    ``dcs`` and ``carries``, of ``lstm_scan_bwd``): the walk back through
+    time as a Python loop. Returns (dz, e, k), e and k None unless
+    ``carries``."""
     n_seq, steps, rows, gates = zs.shape
     units = gates // 4
     rev = lstm_ref.reverse_mask(reverse, n_seq, dirs, zs.device)
     order = lambda a: lstm_ref.processing_order(a, rev)  # noqa: E731
     zs_p, c_p = order(zs), order(c)
     dh_p = None if dh_seq is None else order(dh_seq)
+    dzs_p = None if dzs is None else order(dzs)
+    dcs_p = None if dcs is None else order(dcs)
     wh_t = wh.transpose(1, 2)
     hs, hsd = lstm_ref.hard_sigmoid, lstm_ref.hard_sigmoid_grad
     dh_rec = zs.new_zeros((n_seq, rows, units))
     dc = torch.zeros_like(dh_rec)
     dz = torch.empty_like(zs_p)
+    e = torch.empty_like(c_p) if carries else None
+    k = torch.empty_like(c_p) if carries else None
     for p in reversed(range(steps)):
         dh = dh_rec
         if dh_p is not None:
@@ -266,13 +297,54 @@ def bwd_reference(dh_seq, dh_last, zs, c, wh, dirs, reverse=False):
         zi, zf, g, zo = zs_p[:, p].split(units, dim=-1)
         c_prev = c_p[:, p - 1] if p else torch.zeros_like(dc)
         tc = torch.tanh(c_p[:, p])
+        if dcs_p is not None:
+            dc = dc + dcs_p[:, p]
         dc = dc + dh * hs(zo) * (1 - tc * tc)
-        dz[:, p] = torch.cat([dc * g * hsd(zi), dc * c_prev * hsd(zf),
-                              dc * hs(zi) * (1 - g * g),
-                              dh * tc * hsd(zo)], dim=-1)
+        d = [dc * g * hsd(zi), dc * c_prev * hsd(zf), dc * hs(zi),
+             dh * tc * hsd(zo)]
+        if dzs_p is not None:
+            d = [a + b for a, b in zip(d, dzs_p[:, p].split(units, dim=-1))]
+        d[2] = d[2] * (1 - g * g)
+        dz[:, p] = torch.cat(d, dim=-1)
+        if carries:
+            e[:, p], k[:, p] = dh, dc
         dc = dc * hs(zf)
         dh_rec = torch.bmm(dz[:, p], wh_t)
-    return order(dz)
+    return (order(dz), None if e is None else order(e),
+            None if k is None else order(k))
+
+
+def bwd_reference(dh_seq, dh_last, zs, c, wh, dirs, reverse=False):
+    """The plain version of ``lstm_scan_bwd``: the same walk back through
+    time as a Python loop."""
+    return bwd_ext_reference(dh_seq, dh_last, zs, c, wh, dirs, reverse)[0]
+
+
+def _saved_shapes(zs, c, wh, dirs, **per_step):
+    """(S, T, B, U) of a backward's saved ``zs`` (S, T, B, 4U), checking
+    ``c``, ``wh`` and the optional inputs: "dh_last" (S, B, U), those
+    named "dzs" or "delta" (S, T, B, 4U), the others (S, T, B, U)."""
+    dtype = _dtype(zs)
+    _check("zs", zs, dtype=dtype)
+    if zs.dim() != 4 or zs.shape[-1] % 4:
+        raise ValueError("zs must be (S, T, B, 4U), got %s"
+                         % (tuple(zs.shape),))
+    n_seq, steps, rows, gates = zs.shape
+    units = gates // 4
+    if dirs not in (1, 2) or n_seq % dirs:
+        raise ValueError("dirs must be 1 or 2 and divide S=%d, got %r"
+                         % (n_seq, dirs))
+    _check("wh", wh, (n_seq, units, gates), dtype)
+    _check("c", c, (n_seq, steps, rows, units), dtype)
+    for name, g in per_step.items():
+        if g is None:
+            continue
+        shape = ((n_seq, rows, units) if name == "dh_last" else
+                 (n_seq, steps, rows, gates if name in ("dzs", "delta")
+                  else units))
+        _check(name, g, shape, dtype)
+    _same_device(zs, c=c, wh=wh, **per_step)
+    return n_seq, steps, rows, units
 
 
 def lstm_scan_bwd(dh_seq, dh_last, zs, c, wh, dirs, reverse=False, *,
@@ -285,22 +357,8 @@ def lstm_scan_bwd(dh_seq, dh_last, zs, c, wh, dirs, reverse=False, *,
     forward takes it. Returns dz (S, T, B, 4U), the gradient of each step's
     gate pre-activations, time-aligned: dx, dwx, dwh and db are products of
     it (``ops/lstm.py::LstmScan``)."""
-    _check("zs", zs)
-    if zs.dim() != 4 or zs.shape[-1] % 4:
-        raise ValueError("zs must be (S, T, B, 4U), got %s"
-                         % (tuple(zs.shape),))
-    n_seq, steps, rows, gates = zs.shape
-    units = gates // 4
-    if dirs not in (1, 2) or n_seq % dirs:
-        raise ValueError("dirs must be 1 or 2 and divide S=%d, got %r"
-                         % (n_seq, dirs))
-    _check("wh", wh, (n_seq, units, gates))
-    _check("c", c, (n_seq, steps, rows, units))
-    for name, g, shape in (("dh_seq", dh_seq, (n_seq, steps, rows, units)),
-                           ("dh_last", dh_last, (n_seq, rows, units))):
-        if g is not None:
-            _check(name, g, shape)
-    _same_device(zs, c=c, wh=wh, dh_seq=dh_seq, dh_last=dh_last)
+    n_seq, steps, rows, units = _saved_shapes(
+        zs, c, wh, dirs, dh_seq=dh_seq, dh_last=dh_last)
     if zs.device.type == "cpu":
         return bwd_reference(dh_seq, dh_last, zs, c, wh, dirs, reverse)
     lanes = _lanes(units, n_seq, rows, lanes)
@@ -314,3 +372,95 @@ def lstm_scan_bwd(dh_seq, dh_last, zs, c, wh, dirs, reverse=False, *,
               units, lanes, dirs, int(bool(reverse)), dz.data_ptr())
         bwd_launches += 1
     return dz
+
+
+def lstm_scan_bwd_ext(dh_seq, dh_last, zs, c, wh, dirs, reverse=False, *,
+                      dzs=None, dcs=None, carries=False):
+    """:func:`lstm_scan_bwd` with per-step cotangents entering: ``dzs``
+    (S, T, B, 4U) on the saved zi, zf, tanh(g) and zo, ``dcs`` (S, T, B,
+    U) on the cells, either may be None; with ``carries`` the backward's
+    output gradient e and cell gradient k of every step are stored too.
+    Returns (dz, e, k), time-aligned, e and k (S, T, B, U) or None. One
+    launch of ``lstm_scan_bwd_ext`` (U lanes a row)."""
+    n_seq, steps, rows, units = _saved_shapes(
+        zs, c, wh, dirs, dh_seq=dh_seq, dh_last=dh_last, dzs=dzs, dcs=dcs)
+    if zs.device.type == "cpu":
+        return bwd_ext_reference(dh_seq, dh_last, zs, c, wh, dirs, reverse,
+                                 dzs, dcs, carries)
+    _lanes(units, n_seq, rows, None)
+    global ext_launches
+    lib = build()
+    dz = torch.empty_like(zs)
+    e = torch.empty_like(c) if carries else None
+    k = torch.empty_like(c) if carries else None
+    if steps and rows:
+        _call(lib.mrgan_lstm_scan_bwd_ext, zs.device, _ptr(dh_seq),
+              _ptr(dh_last), zs.data_ptr(), c.data_ptr(), wh.data_ptr(),
+              _ptr(dzs), _ptr(dcs), n_seq, steps, rows, units, dirs,
+              int(bool(reverse)), dz.data_ptr(), _ptr(e), _ptr(k))
+        ext_launches += 1
+    return dz, e, k
+
+
+def adj_reference(delta, zs, c, e, k, wh, dirs, reverse=False):
+    """The plain version of ``lstm_scan_adj``: the VJP of the backward
+    (without cotangents entering) as a Python loop forward in time.
+    Returns (e_bar, zs_bar, c_bar), time-aligned."""
+    n_seq, steps, rows, gates = zs.shape
+    units = gates // 4
+    rev = lstm_ref.reverse_mask(reverse, n_seq, dirs, zs.device)
+    order = lambda a: lstm_ref.processing_order(a, rev)  # noqa: E731
+    delta_p, zs_p, c_p, e_p, k_p = map(order, (delta, zs, c, e, k))
+    hs, hsd = lstm_ref.hard_sigmoid, lstm_ref.hard_sigmoid_grad
+    e_bar = torch.empty_like(c_p)
+    zs_bar = torch.empty_like(zs_p)
+    c_bar = torch.zeros_like(c_p)
+    eb = zs.new_zeros((n_seq, rows, units))
+    kb = torch.zeros_like(eb)
+    for p in range(steps):
+        D = (delta_p[:, p] + torch.bmm(eb, wh)).split(units, dim=-1)
+        zi, zf, g, zo = zs_p[:, p].split(units, dim=-1)
+        c_prev = c_p[:, p - 1] if p else torch.zeros_like(eb)
+        e, k = e_p[:, p], k_p[:, p]
+        tc = torch.tanh(c_p[:, p])
+        dtc, dtg = 1 - tc * tc, 1 - g * g
+        kb_new = (kb * hs(zf) + D[0] * g * hsd(zi) + D[1] * c_prev * hsd(zf)
+                  + D[2] * hs(zi) * dtg)
+        eb = kb_new * hs(zo) * dtc + D[3] * tc * hsd(zo)
+        zs_bar[:, p] = torch.cat([
+            D[2] * k * dtg * hsd(zi), kb * k * hsd(zf),
+            D[0] * k * hsd(zi) - 2 * g * D[2] * k * hs(zi),
+            kb_new * e * dtc * hsd(zo)], dim=-1)
+        c_bar[:, p] += dtc * (D[3] * e * hsd(zo) - 2 * tc * kb_new * e * hs(zo))
+        if p:
+            c_bar[:, p - 1] += D[1] * k * hsd(zf)
+        e_bar[:, p] = eb
+        kb = kb_new
+    return order(e_bar), order(zs_bar), order(c_bar)
+
+
+def lstm_scan_adj(delta, zs, c, e, k, wh, dirs, reverse=False):
+    """The VJP of :func:`lstm_scan_bwd` in one launch, a recurrence forward
+    in time: ``delta`` (S, T, B, 4U) the cotangent on dz; ``zs``, ``c``
+    as the forward saved them; ``e``, ``k`` the backward's carries
+    (:func:`lstm_scan_bwd_ext` with ``carries``); ``wh`` (S, U, 4U).
+    Returns (e_bar, zs_bar, c_bar), time-aligned: the cotangent on e (the
+    incoming output gradients; with dz it also gives the recurrent
+    weights', ``ops/lstm.py``), on the saved gates (S, T, B, 4U) and on
+    the cells (S, T, B, U)."""
+    n_seq, steps, rows, units = _saved_shapes(zs, c, wh, dirs, delta=delta,
+                                              e=e, k=k)
+    if zs.device.type == "cpu":
+        return adj_reference(delta, zs, c, e, k, wh, dirs, reverse)
+    _lanes(units, n_seq, rows, None)
+    global adj_launches
+    lib = build()
+    e_bar, zs_bar, c_bar = (torch.empty_like(t) for t in (c, zs, c))
+    if steps and rows:
+        _call(lib.mrgan_lstm_scan_adj, zs.device, delta.data_ptr(),
+              zs.data_ptr(), c.data_ptr(), e.data_ptr(), k.data_ptr(),
+              wh.data_ptr(), n_seq, steps, rows, units, dirs,
+              int(bool(reverse)), e_bar.data_ptr(), zs_bar.data_ptr(),
+              c_bar.data_ptr())
+        adj_launches += 1
+    return e_bar, zs_bar, c_bar

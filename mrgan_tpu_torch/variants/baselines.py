@@ -7,21 +7,24 @@ Port of ``mrgan_tpu/variants/baselines.py``:
 - 'lstm' the 3-layer biLSTM(16) over the feature vector as a scalar
          sequence, 100 epochs, batch 128 (:187-203), through the recurrence
          kernels on a CUDA device (``ops/lstm.py``);
-- 'svm'  the SVC/NuSVC/LinearSVC zoo (:204-214). The grid's only kernel,
-         1 (``SVC(kernel="linear")``, C = 1), has a native route (the
-         default): the linear Gram matrices on the device
-         (``train.svm.linear_kernel``), the dual on the host by the in-tree
-         SMO (``train.native_svm``). ``solver="libsvm"`` and the other
-         kernels run scikit-learn, and raise where it is not installed;
+- 'svm'  the SVC/NuSVC/LinearSVC zoo (:204-214), every kernel on a native
+         route (the default): 0-3 the RBF (at scikit-learn's
+         ``gamma="scale"``) or linear Gram matrices on the device
+         (``train.svm``), the C-SVC or nu-SVC dual (nu 0.5) on the host by
+         the in-tree SMOs (``train.native_svm``); 4, ``LinearSVC()``, a
+         Newton solve on the device (``train.linear_svc``).
+         ``solver="libsvm"`` runs scikit-learn, and raises where it is not
+         installed;
 - 'rf'   ``RandomForestClassifier(n_estimators=10, random_state=seed)``
          (:215-221), grown draw for draw by ``train.forest`` on the host.
 
 All return ACCURACY, the variant's convention. The trainers take one fold
 (a leading fold axis of 1), draw each epoch's permutation and dropout masks
 up front from one ``torch.Generator`` on the device and pass them to the
-step as arguments. ``pca_scale``'s scalers are numpy copies of
-scikit-learn's ``Normalizer`` and ``StandardScaler``, which the machine
-with the card does not have.
+step as arguments. ``pca_scale``'s PCA is exact, on the device
+(:func:`pca_fit`), and its scalers are numpy copies of scikit-learn's
+``Normalizer`` and ``StandardScaler``: the machine with the card has no
+scikit-learn.
 """
 
 import dataclasses
@@ -33,7 +36,8 @@ import torch
 import torch.nn.functional as F
 
 from ..models import variant_nets as vnets
-from ..train import forest, native_svm, optim, schedule, svm as svm_train
+from ..train import forest, linear_svc, native_svm, optim, schedule
+from ..train import svm as svm_train
 from ..utils import rng as rng_util
 from ..utils import tree
 
@@ -88,16 +92,43 @@ class StandardScaler:
         return x
 
 
-def pca_scale(x_train, x_test, pca=0, scale=None):
-    """pcaScale (wganlpctsemi.py:135-148): optional PCA (scikit-learn, which
-    must then be installed; the grids use 0), then the l2 row normalizer
-    ("norm") or the standard scaler (any other ``scale``). float32 out."""
+def pca_fit(x, n_components, device):
+    """An exact PCA of the rows ``x`` (n, d) on ``device``, in float64:
+    (mean (d,), components (k, d), explained variance (k,)) tensors.
+
+    The components are the leading eigenvectors of the covariance
+    (``torch.linalg.eigh``), each signed as scikit-learn's ``svd_flip(...,
+    u_based_decision=False)`` signs them: its entry of largest magnitude
+    positive. scikit-learn's ``PCA(svd_solver="auto")`` reaches the same
+    subspace by an eigendecomposition of the covariance, a full SVD or, at
+    most of the grid's shapes, an unseeded randomized SVD that approximates
+    it; this is the exact one."""
+    if device is None:
+        raise ValueError("pca > 0 needs device= (nothing falls back to the "
+                         "CPU)")
+    x = torch.as_tensor(np.asarray(x), device=device).to(torch.float64)
+    mean = x.mean(dim=0)
+    xc = x - mean
+    cov = torch.matmul(xc.T, xc) / (x.shape[0] - 1)
+    evals, evecs = torch.linalg.eigh(cov)
+    comps = evecs.flip(1)[:, :n_components].T.contiguous()
+    pick = comps.abs().argmax(dim=1, keepdim=True)
+    comps = comps * torch.sign(comps.gather(1, pick))
+    return mean, comps, evals.flip(0)[:n_components]
+
+
+def pca_scale(x_train, x_test, pca=0, scale=None, device=None):
+    """pcaScale (wganlpctsemi.py:135-148): optional PCA to ``pca``
+    components (:func:`pca_fit` on ``device``, then required; the grids use
+    0), then the l2 row normalizer ("norm") or the standard scaler (any
+    other ``scale``). float32 out."""
     x_train, x_test = np.asarray(x_train), np.asarray(x_test)
     if pca and pca > 0:
-        p = _scikit_learn("decomposition", "pca=%r" % pca).PCA(
-            n_components=pca)
-        x_train = p.fit_transform(x_train)
-        x_test = p.transform(x_test)
+        mean, comps, _ = pca_fit(x_train, pca, device)
+        x_train, x_test = (
+            torch.matmul(torch.as_tensor(a, device=mean.device).to(
+                torch.float64) - mean, comps.T).cpu().numpy()
+            for a in (x_train, x_test))
     if scale == "norm":
         x_train, x_test = normalize_rows(x_train), normalize_rows(x_test)
     elif scale is not None:
@@ -279,7 +310,7 @@ def _scikit_learn(module, what):
 
 
 SVM_SOLVERS = ("native", "libsvm")
-NATIVE_SVM_KERNELS = (1,)
+NU = 0.5  # NuSVC's default
 
 
 def _check(solver, solvers, what):
@@ -288,43 +319,67 @@ def _check(solver, solvers, what):
                          % (what, solvers, solver))
 
 
+def scale_gamma(x):
+    """scikit-learn's ``gamma="scale"``: 1 / (n_features * X.var()) over
+    every entry of the rows (float64), or 1 where they are constant."""
+    x = np.asarray(x, np.float64)
+    var = x.var()
+    return 1.0 / (x.shape[1] * var) if var != 0 else 1.0
+
+
 def learn_svm(x_lab, y_lab, x_test, y_test, kernel=0, solver="native",
               device=None, timings=None):
     """The test accuracy of the kernel zoo's model ``kernel`` (0 rbf SVC, 1
-    linear SVC, 2 rbf NuSVC, 3 linear NuSVC, 4 LinearSVC). Kernel 1 on the
-    native solver: the linear Gram matrices on ``device`` (then required),
-    the one-vs-one dual by the in-tree SMO on the host; ``timings``, an
-    optional dict, receives the seconds of the Gram ("gram_s", the host copy
-    included) and of the solve ("solve_s"). Every other kernel, and
-    ``solver="libsvm"``, runs scikit-learn."""
+    linear SVC, 2 rbf NuSVC, 3 linear NuSVC, 4 LinearSVC, each with
+    scikit-learn's defaults). The native solver (``device`` then required):
+    for 0-3 the RBF or linear Gram matrices on ``device``, the one-vs-one
+    C-SVC or nu-SVC dual by the in-tree SMOs on the host; for 4 the
+    one-vs-rest primal by Newton's method on ``device``. ``timings``, an
+    optional dict, receives the seconds of the Gram ("gram_s", the host
+    copy included; 0 for kernel 4) and of the solve ("solve_s").
+    ``solver="libsvm"`` runs scikit-learn."""
     _check(solver, SVM_SOLVERS, "svm")
-    if solver == "native" and kernel in NATIVE_SVM_KERNELS:
-        if device is None:
-            raise ValueError("the native svm solver needs device= (nothing "
-                             "falls back to the CPU)")
-        t0 = time.perf_counter()
-        xl, xt = (torch.as_tensor(np.asarray(a), dtype=torch.float32,
-                                  device=device) for a in (x_lab, x_test))
-        k_train = svm_train.linear_kernel(xl, xl).cpu().numpy()
-        k_test = svm_train.linear_kernel(xt, xl).cpu().numpy()
-        t1 = time.perf_counter()
-        model = native_svm.OvoSVC(C=1.0).fit(k_train, np.asarray(y_lab))
-        accuracy = model.score(k_test, np.asarray(y_test))
+    if solver == "libsvm":
+        svm_lib = _scikit_learn("svm", "-a svm (kernel %d, %s)" % (kernel,
+                                                                    solver))
+        models = {
+            0: lambda: svm_lib.SVC(kernel="rbf"),
+            1: lambda: svm_lib.SVC(kernel="linear"),
+            2: lambda: svm_lib.NuSVC(kernel="rbf"),
+            3: lambda: svm_lib.NuSVC(kernel="linear"),
+            4: lambda: svm_lib.LinearSVC(),
+        }
+        svm = models[kernel]()
+        svm.fit(x_lab, y_lab)
+        return float(svm.score(x_test, y_test))
+    if kernel not in range(5):
+        raise ValueError("svm kernel must be 0-4, got %r" % (kernel,))
+    if device is None:
+        raise ValueError("the native svm solver needs device= (nothing "
+                         "falls back to the CPU)")
+    t0 = time.perf_counter()
+    xl, xt = (torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                              device=device) for a in (x_lab, x_test))
+    if kernel == 4:
+        model = linear_svc.LinearSVC().fit(xl, np.asarray(y_lab))
+        accuracy = model.score(xt, np.asarray(y_test))
         if timings is not None:
-            timings.update(gram_s=t1 - t0, solve_s=time.perf_counter() - t1)
+            timings.update(gram_s=0.0, solve_s=time.perf_counter() - t0)
         return accuracy
-    svm_lib = _scikit_learn("svm", "-a svm (kernel %d, %s)" % (kernel,
-                                                                solver))
-    models = {
-        0: lambda: svm_lib.SVC(kernel="rbf"),
-        1: lambda: svm_lib.SVC(kernel="linear"),
-        2: lambda: svm_lib.NuSVC(kernel="rbf"),
-        3: lambda: svm_lib.NuSVC(kernel="linear"),
-        4: lambda: svm_lib.LinearSVC(),
-    }
-    svm = models[kernel]()
-    svm.fit(x_lab, y_lab)
-    return float(svm.score(x_test, y_test))
+    if kernel in (0, 2):
+        gamma = scale_gamma(x_lab)
+        gram = lambda a, b: svm_train.rbf_kernel(a, b, gamma)  # noqa: E731
+    else:
+        gram = svm_train.linear_kernel
+    k_train = gram(xl, xl).cpu().numpy()
+    k_test = gram(xt, xl).cpu().numpy()
+    t1 = time.perf_counter()
+    model = native_svm.OvoSVC(C=1.0, nu=NU if kernel in (2, 3) else None)
+    accuracy = model.fit(k_train, np.asarray(y_lab)).score(
+        k_test, np.asarray(y_test))
+    if timings is not None:
+        timings.update(gram_s=t1 - t0, solve_s=time.perf_counter() - t1)
+    return accuracy
 
 
 def learn_rf(x_lab, y_lab, x_test, y_test, n_estimators=10, seed=0,

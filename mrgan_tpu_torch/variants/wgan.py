@@ -25,9 +25,9 @@ Kept from the JAX package: the last partial batch of an epoch is dropped
 (:475-487 trains on it; < 1 % of an epoch's rows), and the reference's
 Lipschitz penalty is the constant 0 it provably evaluates to
 (``petzka_lp=False``; ``models/losses.py::lipschitz_penalty``).
-``petzka_lp=True`` with the biLSTM critic needs a double backward through
-the recurrence: the CPU's plain loop has one, the kernels do not, so on a
-CUDA device it raises.
+``petzka_lp=True`` with the biLSTM critic takes a double backward through
+the recurrence: the plain loop's on the CPU, the kernels' on a CUDA device
+(``ops/lstm.py::LstmScan``).
 """
 
 import dataclasses
@@ -226,11 +226,6 @@ def disc_step(state, xl, yl, xu, r, cfg):
     fake term, train_err)), each (F,)."""
     bs = cfg.batch_size
     gan_family = cfg.algo in GAN_FAMILY
-    if cfg.petzka_lp and cfg.arch == "lstm" and xu.is_cuda:
-        raise NotImplementedError(
-            "petzka_lp=True with the biLSTM critic needs a double backward "
-            "through the recurrence, which the CUDA kernels do not have; "
-            "use petzka_lp=False (the reference's penalty) or the CPU")
     with torch.no_grad():
         x_fake = vnets.small_generator_apply(state["gen"], r["z"])
     pd = _with_grad(state["disc"])

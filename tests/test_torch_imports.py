@@ -53,7 +53,9 @@ def test_port_imports_without_jax():
                  "data.preprocess", "cli.preprocess", "data.py2pickle",
                  "ops.resample", "parallel", "parallel.mesh",
                  "parallel.multihost", "parallel.spmd", "parallel.sweep",
-                 "parallel.tensor", "utils.profiling", *ACQUISITION):
+                 "parallel.tensor", "utils.profiling", "reports",
+                 "reports.plots", "cli.plots", "train.linear_svc",
+                 *ACQUISITION):
         assert "mrgan_tpu_torch." + name in names
     proc = subprocess.run(
         [sys.executable, "-c", _CHILD, *names], cwd=ROOT,

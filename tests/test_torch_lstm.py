@@ -324,3 +324,75 @@ def test_default_lanes_are_compiled_variants():
     for units, lanes in lstm_cuda.LANES.items():
         for n_seq, rows in ((2, 1), (2, 128), (12, 128), (12, 384)):
             assert lstm_cuda.default_lanes(units, n_seq, rows) in lanes
+
+
+@pytest.mark.parametrize("in_dim,units,dirs,reverse,return_sequences", [
+    (1, 2, 2, False, False),   # the iwganlstm critic's layout
+    (1, 4, 1, True, True),
+    (2, 2, 1, True, False),
+    (2, 4, 2, False, True),
+    (1, 4, 2, False, True),
+    (2, 2, 1, False, True),
+])
+def test_lstm_scan_is_twice_differentiable(in_dim, units, dirs, reverse,
+                                           return_sequences):
+    """gradgradcheck of LstmScan in float64 on the CPU: the second backward
+    through the plain versions of lstm_scan_adj and lstm_scan_bwd_ext (and
+    the products of dz, differentiated by autograd), every input kept off
+    the hard-sigmoid edges (|0.2 z| well below 2.5)."""
+    gen = torch.Generator().manual_seed(in_dim * 100 + units * 10 + dirs)
+
+    def rand(scale, *shape):
+        return (scale * torch.randn(shape, generator=gen,
+                                    dtype=torch.float64)).requires_grad_()
+
+    n_folds, steps, rows = 1, 4, 2
+    x = rand(0.5, n_folds, steps, rows, in_dim)
+    wx = rand(0.3, n_folds, dirs, in_dim, 4 * units)
+    wh = rand(0.3, n_folds, dirs, units, 4 * units)
+    b = rand(0.3, n_folds, dirs, 4 * units)
+    assert torch.autograd.gradgradcheck(
+        lambda *a: lstm.LstmScan.apply(*a, dirs, reverse, return_sequences),
+        (x, wx, wh, b))
+
+
+def test_first_backward_is_unchanged_under_create_graph():
+    """The backward that a double backward records (lstm_scan_bwd_ext,
+    storing its carries) gives the gradients of the first-order route
+    (lstm_scan_bwd) bit for bit."""
+    trees, params = _folds(jax_vnets.bilstm_init, 2, 1, 4)
+    xs = torch.tensor(_inputs(2, 1, seed=8)[0], requires_grad=True)
+    leaves = [xs] + jax.tree.leaves(
+        jax.tree.map(lambda a: a.requires_grad_(), params))
+    grads = []
+    for create_graph in (False, True):
+        out = _through_kernels(params, xs, 2, False, False)
+        grads.append(torch.autograd.grad(out.square().sum(), leaves,
+                                         create_graph=create_graph))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b.detach())
+
+
+def test_double_backward_wrappers_check_and_never_fall_back():
+    zs, c, wh = (torch.zeros((2, T, B, 16)), torch.zeros((2, T, B, 4)),
+                 torch.zeros((2, 4, 16)))
+    with pytest.raises(ValueError):
+        lstm_cuda.lstm_scan_bwd_ext(None, None, zs, c, wh, 2,
+                                    dzs=torch.zeros((2, T, B, 4)))
+    with pytest.raises(TypeError):
+        lstm_cuda.lstm_scan_adj(zs, zs, c, c.double(), c, wh, 2)
+    meta = lambda *ts: [t.to("meta") for t in ts]  # noqa: E731
+    with pytest.raises(ValueError, match="U in"):
+        lstm_cuda.lstm_scan_adj(*meta(torch.zeros((2, T, B, 12)),
+                                      torch.zeros((2, T, B, 12)),
+                                      torch.zeros((2, T, B, 3)),
+                                      torch.zeros((2, T, B, 3)),
+                                      torch.zeros((2, T, B, 3)),
+                                      torch.zeros((2, 3, 12))), 2)
+    before = (lstm_cuda.ext_launches, lstm_cuda.adj_launches)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        lstm_cuda.lstm_scan_bwd_ext(None, None, *meta(zs, c, wh), 2,
+                                    carries=True)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        lstm_cuda.lstm_scan_adj(*meta(zs, zs, c, c, c, wh), 2)
+    assert (lstm_cuda.ext_launches, lstm_cuda.adj_launches) == before

@@ -1,7 +1,8 @@
 """The recurrence kernels' CUDA source (mrgan_tpu_torch/csrc/lstm_scan.cu)
-built for the host and run on the CPU: every lanes-a-row variant of both
-kernels against their plain versions in ops/lstm_cuda.py, and against each
-other bit for bit.
+built for the host and run on the CPU: every lanes-a-row variant of the
+forward and backward kernels against their plain versions in
+ops/lstm_cuda.py, and against each other bit for bit; and the double
+backward's two kernels (lstm_scan_bwd_ext, lstm_scan_adj) against theirs.
 
 The host build emulates the few CUDA features the source uses: a block's
 32 lanes are 32 threads, __syncwarp and the shuffles meet at a barrier,
@@ -102,7 +103,7 @@ def host_source():
     s = s.replace("extern __shared__ __align__(16) float smem[];", "")
     s, n = re.subn(r"kernel<<<grid, kWarp, [^>]*>>>\(a\);",
                    "host_launch(kernel, grid, kWarp, a);", s)
-    assert n == 2, n
+    assert n == 4, n
     return s.replace("#include <cuda_runtime.h>", '#include "cuda_runtime.h"')
 
 
@@ -124,6 +125,8 @@ def host_lib(tmp_path_factory):
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.mrgan_lstm_scan_fwd.argtypes = [vp] * 5 + [i32] * 7 + [vp] * 5
     lib.mrgan_lstm_scan_bwd.argtypes = [vp] * 5 + [i32] * 7 + [vp] * 2
+    lib.mrgan_lstm_scan_bwd_ext.argtypes = [vp] * 7 + [i32] * 6 + [vp] * 4
+    lib.mrgan_lstm_scan_adj.argtypes = [vp] * 6 + [i32] * 6 + [vp] * 4
     return lib
 
 
@@ -207,3 +210,67 @@ def test_unsupported_lanes_return_an_error(host_lib):
     assert host_lib.mrgan_lstm_scan_bwd(
         None, None, _ptr(z), _ptr(z), _ptr(z), 2, 1, 1, 12, 4, 2, 0,
         _ptr(z), None) == -1
+    assert host_lib.mrgan_lstm_scan_bwd_ext(
+        None, None, _ptr(z), _ptr(z), _ptr(z), None, None, 2, 1, 1, 8, 2, 0,
+        _ptr(z), None, None, None) == -1
+    assert host_lib.mrgan_lstm_scan_adj(
+        _ptr(z), _ptr(z), _ptr(z), _ptr(z), _ptr(z), _ptr(z), 2, 1, 1, 8, 2,
+        0, _ptr(z), _ptr(z), _ptr(z), None) == -1
+
+
+@pytest.mark.parametrize("units", [4, 16])
+@pytest.mark.parametrize("dirs,reverse,sequences",
+                         [(2, False, False), (1, True, True)])
+def test_host_build_of_the_double_backward_kernels(host_lib, units, dirs,
+                                                   reverse, sequences):
+    """lstm_scan_bwd_ext without cotangents (its carries stored) is
+    lstm_scan_bwd's variant of U lanes a row bit for bit; with cotangents,
+    and lstm_scan_adj, within rounding of the plain versions, over a
+    partial last block of rows."""
+    steps, rows, n_seq = 19, 5, 2 * dirs
+    gen = torch.Generator().manual_seed(6)
+    rand = lambda *s: torch.randn(s, generator=gen)  # noqa: E731
+    wh = 0.5 * rand(n_seq, units, 4 * units)
+    _, _, zs, c = lstm_cuda.fwd_reference(rand(n_seq, steps, rows,
+                                               4 * units), wh, dirs, reverse)
+    dh_seq = rand(n_seq, steps, rows, units) if sequences else None
+    dh_last = rand(n_seq, rows, units)
+    dzs, dcs = rand(*zs.shape), rand(*c.shape)
+    out = lambda *like: [torch.empty_like(t) for t in like]  # noqa: E731
+
+    def ext(extras, carries):
+        dz, e, k = out(zs, c, c)
+        assert host_lib.mrgan_lstm_scan_bwd_ext(
+            _ptr(dh_seq), _ptr(dh_last), _ptr(zs), _ptr(c), _ptr(wh),
+            *(map(_ptr, extras) if extras else (None, None)), n_seq, steps,
+            rows, units, dirs, int(reverse), _ptr(dz),
+            *((_ptr(e), _ptr(k)) if carries else (None, None)), None) == 0
+        return dz, e, k
+
+    dz, e, k = ext(None, True)
+    dz_bwd = torch.empty_like(zs)
+    assert host_lib.mrgan_lstm_scan_bwd(
+        _ptr(dh_seq), _ptr(dh_last), _ptr(zs), _ptr(c), _ptr(wh), n_seq,
+        steps, rows, units, units, dirs, int(reverse), _ptr(dz_bwd),
+        None) == 0
+    assert torch.equal(dz, dz_bwd)
+    want = lstm_cuda.bwd_ext_reference(dh_seq, dh_last, zs, c, wh, dirs,
+                                       reverse, carries=True)
+    for name, a, b in zip(("dz", "e", "k"), (dz, e, k), want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-5, err_msg=name)
+    got = ext((dzs, dcs), False)[0]
+    want_x = lstm_cuda.bwd_ext_reference(dh_seq, dh_last, zs, c, wh, dirs,
+                                         reverse, dzs=dzs, dcs=dcs)[0]
+    np.testing.assert_allclose(got.numpy(), want_x.numpy(), rtol=1e-4,
+                               atol=1e-5, err_msg="dz with cotangents")
+    delta = rand(*zs.shape)
+    bars = out(c, zs, c)
+    assert host_lib.mrgan_lstm_scan_adj(
+        _ptr(delta), _ptr(zs), _ptr(c), _ptr(e), _ptr(k), _ptr(wh), n_seq,
+        steps, rows, units, dirs, int(reverse), *map(_ptr, bars),
+        None) == 0
+    want = lstm_cuda.adj_reference(delta, zs, c, e, k, wh, dirs, reverse)
+    for name, a, b in zip(("e_bar", "zs_bar", "c_bar"), bars, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-4, err_msg=name)

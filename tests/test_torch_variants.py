@@ -23,6 +23,7 @@ from mrgan_tpu.variants import wgan as jax_wgan
 from mrgan_tpu_torch.data import spectrometer
 from mrgan_tpu_torch.models import losses
 from mrgan_tpu_torch.models import variant_nets as vnets
+from mrgan_tpu_torch.ops import lstm, lstm_cuda
 from mrgan_tpu_torch.variants import baselines, wgan
 
 TOL = 1e-5      # one forward pass, fp32
@@ -189,9 +190,15 @@ def _close_grads(penalty, params, want):
         _close(torch.zeros_like(p[0]) if g is None else g[0], w, 1e-4)
 
 
-def test_lipschitz_penalty_through_the_plain_lstm_loop():
-    """petzka_lp with the biLSTM critic: a double backward through the
-    recurrence, which the CPU's plain loop has."""
+def _through_kernels(monkeypatch):
+    """Send the port's biLSTM through ``LstmScan`` (the kernels' plain
+    versions on the CPU) instead of the plain loop under autograd."""
+    monkeypatch.setattr(lstm, "bilstm", lambda p, xs, return_sequences=True:
+                        lstm._layer(*lstm._both(p), xs, 2, False,
+                                    return_sequences, False))
+
+
+def _lstm_penalty_vs_jax():
     p = _np({"lstm": jax_vnets.bilstm_init(jax.random.PRNGKey(8), 1, 3),
              "out": jax_nets.dense_init(jax.random.PRNGKey(9), 6, 6)})
     p["out"]["w"] = 300 * p["out"]["w"]  # gradient norms past 1
@@ -213,6 +220,25 @@ def test_lipschitz_penalty_through_the_plain_lstm_loop():
         _t(xf)[None], _t(eps)[None], petzka=True)
     _close(got[0].detach(), want)
     _close_grads(got, tp, want_g)
+
+
+def test_lipschitz_penalty_through_the_plain_lstm_loop():
+    """petzka_lp with the biLSTM critic: a double backward through the
+    recurrence, which the CPU's plain loop has."""
+    _lstm_penalty_vs_jax()
+
+
+def test_lipschitz_penalty_through_the_recurrence_kernels(monkeypatch):
+    """The same through LstmScan, the route of a CUDA device: the first
+    backward recorded, the second through the plain versions of
+    lstm_scan_adj and lstm_scan_bwd_ext, against jax.grad."""
+    _through_kernels(monkeypatch)
+    calls = []
+    for name in ("bwd_ext_reference", "adj_reference"):
+        monkeypatch.setattr(lstm_cuda, name, lambda *a, _f=getattr(
+            lstm_cuda, name), _n=name, **k: calls.append(_n) or _f(*a, **k))
+    _lstm_penalty_vs_jax()
+    assert {"bwd_ext_reference", "adj_reference"} <= set(calls)
 
 
 # --------------------------------------------------------------------------
@@ -313,16 +339,37 @@ SMALL = dict(noise_size=10, batch_size=8, epochs=1, gen_hidden=8,
              disc_width=16, disc_blocks=2, lstm_units=3)
 
 
+def _active_penalty(monkeypatch):
+    """Both packages' iwganlstm critic with its head scaled by 1,000, so that
+    the Petzka penalty is active (~100 at each of the test's three steps:
+    the gradient of the mean logit is 1/48 of a row's) and its double
+    backward trains the critic."""
+    init = jax_wgan.init_params
+
+    def scaled(*args, **kwargs):
+        params = init(*args, **kwargs)
+        out = params["disc"]["out"]
+        return {**params, "disc": {**params["disc"],
+                                   "out": {**out, "w": 1000 * out["w"]}}}
+
+    monkeypatch.setattr(jax_wgan, "init_params", scaled)
+
+
 @pytest.mark.parametrize("algorithm", ["iwgan", "iwganlstm", "gan",
-                                       "ganlstm"])
+                                       "ganlstm", "iwganlstm_petzka"])
 def test_wgan_train_steps_match_jax_train_one(algorithm, monkeypatch):
     """K = 3 batches of one fold: the port's train_step fed _train_one's
     draws ends at the JAX package's generator, critic and Adam state, and
-    its eval-mode critic gives the same test logits and error."""
+    its eval-mode critic gives the same test logits and error.
+    "iwganlstm_petzka": petzka_lp=True, its critic through LstmScan (the
+    route of a CUDA device: the double backward's kernels' plain
+    versions)."""
     jcfg = dataclasses.replace({
         "iwgan": jax_wgan.WganConfig, "iwganlstm": jax_wgan.iwganlstm_config,
         "gan": lambda: jax_wgan.WganConfig(algo="gan"),
-        "ganlstm": jax_wgan.ganlstm_config}[algorithm](), **SMALL)
+        "ganlstm": jax_wgan.ganlstm_config,
+        "iwganlstm_petzka": lambda: jax_wgan.iwganlstm_config(
+            petzka_lp=True)}[algorithm](), **SMALL)
     cfg = wgan.WganConfig(**dataclasses.asdict(jcfg))
     feat, n_lab, n_train, n_test = 12, 10, 24, 12
     rng = np.random.RandomState(7)
@@ -333,6 +380,8 @@ def test_wgan_train_steps_match_jax_train_one(algorithm, monkeypatch):
                            .astype(np.float32)
                            for y in (y_lab, y_pool, y_test))
     key = jax.random.PRNGKey(11)
+    if cfg.petzka_lp:
+        _active_penalty(monkeypatch)
     spy = _ScanSpy()
     monkeypatch.setattr(jax_wgan, "jax", spy)
     want_err = jax_wgan._train_one(
@@ -341,6 +390,9 @@ def test_wgan_train_steps_match_jax_train_one(algorithm, monkeypatch):
         n_train=n_train, cfg=jcfg)
     pg, pd, od, og = _np(spy.results[-1][0])
     monkeypatch.undo()
+    if cfg.petzka_lp:
+        _active_penalty(monkeypatch)
+        _through_kernels(monkeypatch)
 
     params, steps = _wgan_draws(key, jcfg, n_lab, n_train, n_train, feat)
     assert len(steps) == 3
