@@ -184,8 +184,11 @@ Phases (any failure raises and the script exits non-zero):
     the iwganlstm critic's full width (6 folds x 128 mixed rows, T =
     1,280, U 4, in 1, final state; the head scaled so that every row's
     gradient norm passes 1) and at a U = 16 layer, kernels against the
-    plain loop on the card at phase 16's bars; both kernels timed beside
-    their plain versions and bound; one full-width ``disc_step`` with
+    plain loop on the card at phase 16's bars; every lanes-a-row variant
+    of both kernels (the first held to the plain version, the others to
+    it bit for bit) timed beside the plain versions, the bound and the
+    earlier unstaged kernels' times at the penalty's 12 x 128 rows, and
+    again at a critic update's 12 x 384; one full-width ``disc_step`` with
     ``petzka_lp=True`` held the same way; a 2-epoch ``run_wgan_cell`` with
     it (errors, the share of updates with the penalty active, step time;
     no JAX record holds it).
@@ -3371,15 +3374,17 @@ def second_order_bound(n_seq, steps, rows, units, kernel):
                                        else "bytes")
 
 
-def second_order_times(dev, folds=6, rows=128, units=4, seed=31):
-    """31(3): the two kernels alone at the penalty's shape, on the tensors
-    of one forward and seeded cotangents: each held to its plain version
-    at phase 16's gradient bars (or the float64 rule), then timed with
-    CUDA events (20 launches back to back) in turns with the plain
-    version (one run each), beside the bound. lstm_scan_bwd_ext is timed
-    with cotangents entering (the second backward's call) and with its
-    carries stored (the recorded first backward's). Returns the JSON fields
-    of both kernels."""
+# the earlier, unstaged design's times at the penalty's shape (two runs of
+# this script on an NVIDIA H100 80GB HBM3, 700 W), printed beside the
+# staged kernels'
+SECOND_ORDER_EARLIER_MS = {"bwd_ext": (0.8429, 0.8404),
+                           "bwd_ext carries": (0.7860, 0.7834),
+                           "adj": (0.9028, 0.9032)}
+
+
+def second_order_inputs(dev, folds, rows, units, seed):
+    """The saved tensors of one forward of the critic's biLSTM layer on the
+    card, the carries of one backward and seeded cotangents, by name."""
     n_seq = 2 * folds
     params, x, _ = lstm_case(dev, folds, 1, units, rows, False, seed)
     fwd, _ = lstm_kernel_calls(dev, params, x, units, rows, False)
@@ -3391,53 +3396,125 @@ def second_order_times(dev, folds=6, rows=128, units=4, seed=31):
         dh_last = rand(n_seq, rows, units)
         _, e, k = lstm_cuda.lstm_scan_bwd_ext(None, dh_last, zs, c, wh, 2,
                                               carries=True)
-        i32 = dict(zs=zs, c=c, wh=wh, dh_last=dh_last, dzs=rand(*zs.shape),
-                   dcs=rand(*c.shape), delta=rand(*zs.shape), e=e, k=k)
-        i64 = {name: t.double() for name, t in i32.items()}
-        calls = {
-            "bwd_ext": lambda i, ext, adj: ext(
-                None, i["dh_last"], i["zs"], i["c"], i["wh"], 2,
-                dzs=i["dzs"], dcs=i["dcs"])[:1],
-            "bwd_ext carries": lambda i, ext, adj: ext(
-                None, i["dh_last"], i["zs"], i["c"], i["wh"], 2,
-                carries=True),
-            "adj": lambda i, ext, adj: adj(i["delta"], i["zs"], i["c"],
-                                           i["e"], i["k"], i["wh"], 2),
-        }
-        kernels = (lstm_cuda.lstm_scan_bwd_ext, lstm_cuda.lstm_scan_adj)
-        plains = (lstm_cuda.bwd_ext_reference, lstm_cuda.adj_reference)
-        fields = {}
-        for name, call in calls.items():
-            kernel = lambda: call(i32, *kernels)  # noqa: E731
-            plain = lambda: call(i32, *plains)  # noqa: E731
-            # in turns: plain (the run the kernel is held to), kernel,
-            # kernel, plain
-            want, first_ms = timed_once(plain)
-            err, notes = hold_grads("phase 31 " + name, kernel(), want,
-                                    lambda: call(i64, *plains))
-            kernel_ms, plain_ms = [], [first_ms]
-            kernel_ms.append(stream_ms(kernel))
-            kernel_ms.append(stream_ms(kernel))
-            plain_ms.append(stream_ms(plain, runs=1, warmup=0))
-            bound = second_order_bound(n_seq, VARIANT_T, rows, units,
-                                       name.split()[0])
-            ms, p_ms = statistics.median(kernel_ms), statistics.median(
-                plain_ms)
-            print("phase 31: %s at %d sequences x %d rows, T=%d, U=%d: "
-                  "kernel %.4f ms (%.1f ns a step; runs %s), plain %.4f ms "
-                  "(runs %s), bound %.4f ms (%s; the kernel at %.2f %%); "
-                  "max_abs_err vs plain %r%s" % (
-                      name, n_seq, rows, VARIANT_T, units, ms,
-                      1e6 * ms / VARIANT_T, ["%.4f" % v for v in kernel_ms],
-                      p_ms, ["%.1f" % v for v in plain_ms], *bound,
-                      100 * bound[0] / ms, err,
-                      " (past the bar: %s)" % ", ".join(notes) if notes
-                      else ""))
-            if name in ("bwd_ext", "adj"):
-                fields["lstm_scan_" + name] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=bound[0],
-                    bound_by=bound[1], library_ms=None)
+        return dict(zs=zs, c=c, wh=wh, dh_last=dh_last, dzs=rand(*zs.shape),
+                    dcs=rand(*c.shape), delta=rand(*zs.shape), e=e, k=k)
+
+
+# the double backward's three kernel calls: the second backward's (the
+# cotangents entering), the recorded first backward's (its carries
+# stored), the adjoint's; each through (ext, adj), the wrappers or their
+# plain versions
+SECOND_ORDER_CALLS = {
+    "bwd_ext": lambda i, ext, adj: ext(
+        None, i["dh_last"], i["zs"], i["c"], i["wh"], 2, dzs=i["dzs"],
+        dcs=i["dcs"])[:1],
+    "bwd_ext carries": lambda i, ext, adj: ext(
+        None, i["dh_last"], i["zs"], i["c"], i["wh"], 2, carries=True),
+    "adj": lambda i, ext, adj: adj(i["delta"], i["zs"], i["c"], i["e"],
+                                   i["k"], i["wh"], 2),
+}
+
+
+def second_order_variant(lanes):
+    """(ext, adj): the two wrappers forced to ``lanes`` a row."""
+    return (lambda *a, **k: lstm_cuda.lstm_scan_bwd_ext(*a, lanes=lanes, **k),
+            lambda *a, **k: lstm_cuda.lstm_scan_adj(*a, lanes=lanes, **k))
+
+
+def second_order_times(dev, folds=6, rows=128, units=4, seed=31,
+                       update_rows=384):
+    """31(3): the two kernels alone at the penalty's shape, on the tensors
+    of one forward and seeded cotangents, every lanes-a-row variant: the
+    first held to its plain version at phase 16's gradient bars (or the
+    float64 rule), the others to the first bit for bit; each timed with
+    CUDA events (20 launches back to back, twice) in turns with the plain
+    version (one run each), beside the bound and the unstaged design's
+    times.
+    lstm_scan_bwd_ext is timed with cotangents entering (the second
+    backward's call) and with its carries stored (the recorded first
+    backward's). Then every variant again at a critic update's rows
+    (``update_rows``), bit for bit alike and timed, without the plain
+    versions. Returns the JSON fields of both kernels (the wrapper's pick
+    of lanes)."""
+    n_seq = 2 * folds
+    i32 = second_order_inputs(dev, folds, rows, units, seed)
+    i64 = {name: t.double() for name, t in i32.items()}
+    plains = (lstm_cuda.bwd_ext_reference, lstm_cuda.adj_reference)
+    pick = lstm_cuda.default_lanes(units, n_seq, rows)
+    fields = {}
+    for name, call in SECOND_ORDER_CALLS.items():
+        plain = lambda: call(i32, *plains)  # noqa: E731
+        # in turns: plain (the run the kernels are held to), every
+        # variant twice, plain
+        want, first_ms = timed_once(plain)
+        first, err, notes, lanes_ms = None, 0.0, [], {}
+        for lanes in lstm_cuda.LANES[units]:
+            kernel = lambda: call(i32, *second_order_variant(lanes))  # noqa: E731
+            got = kernel()
+            if first is None:
+                first = got
+                err, notes = hold_grads("phase 31 " + name, got, want,
+                                        lambda: call(i64, *plains))
+            else:
+                assert same_bits(tuple(got), tuple(first)), (name, lanes)
+            lanes_ms[lanes] = [stream_ms(kernel), stream_ms(kernel)]
+        plain_ms = [first_ms, stream_ms(plain, runs=1, warmup=0)]
+        bound = second_order_bound(n_seq, VARIANT_T, rows, units,
+                                   name.split()[0])
+        ms, p_ms = (statistics.median(lanes_ms[pick]),
+                    statistics.median(plain_ms))
+        print("phase 31: %s at %d sequences x %d rows, T=%d, U=%d, %d lanes "
+              "a row (the wrapper's pick): kernel %.4f ms (%.1f ns a step), "
+              "plain %.4f ms (runs %s), bound %.4f ms (%s; the kernel at "
+              "%.2f %%); the unstaged design %s ms; max_abs_err vs "
+              "plain %r%s; every variant (%s bit for bit): %s" % (
+                  name, n_seq, rows, VARIANT_T, units, pick, ms,
+                  1e6 * ms / VARIANT_T, p_ms,
+                  ["%.1f" % v for v in plain_ms], *bound,
+                  100 * bound[0] / ms,
+                  " / ".join("%.4f" % v
+                             for v in SECOND_ORDER_EARLIER_MS[name]), err,
+                  " (past the bar: %s)" % ", ".join(notes) if notes else "",
+                  "the first held to plain, the others to it",
+                  variant_times(lanes_ms, bound[0])))
+        if name in ("bwd_ext", "adj"):
+            fields["lstm_scan_" + name] = dict(
+                max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=bound[0],
+                bound_by=bound[1], library_ms=None)
+    # a critic update's rows: the kernels alone
+    i32 = second_order_inputs(dev, folds, update_rows, units, seed + 1)
+    lines = []
+    for name, call in SECOND_ORDER_CALLS.items():
+        first, lanes_ms = None, {}
+        for lanes in lstm_cuda.LANES[units]:
+            kernel = lambda: call(i32, *second_order_variant(lanes))  # noqa: E731
+            got = kernel()
+            if first is None:
+                first = got
+            else:
+                assert same_bits(tuple(got), tuple(first)), (name, lanes)
+            lanes_ms[lanes] = [stream_ms(kernel), stream_ms(kernel)]
+        bound = second_order_bound(n_seq, VARIANT_T, update_rows, units,
+                                   name.split()[0])
+        lines.append("%s (bound %.4f ms, %s): %s" % (
+            name, *bound, variant_times(lanes_ms, bound[0])))
+    print("phase 31: at a critic update's %d sequences x %d rows, T=%d, "
+          "U=%d, every variant bit for bit the first's (no plain run): %s"
+          % (n_seq, update_rows, VARIANT_T, units, "; ".join(lines)))
     return fields
+
+
+def variant_times(lanes_ms, bound_ms):
+    """'lanes: ms (ns a step, share of the bound; runs)' for each variant,
+    its ms the median of its runs."""
+    out = []
+    for lanes, runs in lanes_ms.items():
+        ms = statistics.median(runs)
+        out.append("%d lanes %.4f ms (%.1f ns a step, %.2f %% of the "
+                   "bound; runs %s)" % (
+                       lanes, ms, 1e6 * ms / VARIANT_T, 100 * bound_ms / ms,
+                       ", ".join("%.4f" % v for v in runs)))
+    return ", ".join(out)
 
 
 @contextlib.contextmanager

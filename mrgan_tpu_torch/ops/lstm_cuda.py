@@ -15,11 +15,12 @@ and fuses the input projection: ``xw`` is never made. Each kernel is compiled fo
 the same sums in the same order.
 
 A double backward (the Petzka penalty with the biLSTM critic) runs two
-more kernels of the same source, the first version's simple design (U
-lanes a row): ``lstm_scan_adj``, the backward's own VJP, a recurrence
-forward in time over the adjoints of the backward's carries; and
-``lstm_scan_bwd_ext``, the backward with per-step cotangents on the saved
-gates and cells added (and its carries stored for ``lstm_scan_adj``).
+more kernels of the same source and design (the same lanes-a-row
+variants, step inputs staged by ``cp.async``): ``lstm_scan_bwd_ext``,
+the backward kernel compiled with per-step cotangents on the saved gates
+and cells added (or its carries stored for ``lstm_scan_adj``), and
+``lstm_scan_adj``, the backward's own VJP, a recurrence forward in time
+over the adjoints of the backward's carries.
 
 Built like ``ops/mel_cuda.py``: ``nvcc`` for ``sm_90a`` into
 ``build/mrgan_tpu_torch/`` at first use, a plain C entry point per kernel,
@@ -84,8 +85,8 @@ def build():
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.mrgan_lstm_scan_fwd.argtypes = [vp] * 5 + [i32] * 7 + [vp] * 5
     lib.mrgan_lstm_scan_bwd.argtypes = [vp] * 5 + [i32] * 7 + [vp] * 2
-    lib.mrgan_lstm_scan_bwd_ext.argtypes = [vp] * 7 + [i32] * 6 + [vp] * 4
-    lib.mrgan_lstm_scan_adj.argtypes = [vp] * 6 + [i32] * 6 + [vp] * 4
+    lib.mrgan_lstm_scan_bwd_ext.argtypes = [vp] * 7 + [i32] * 7 + [vp] * 4
+    lib.mrgan_lstm_scan_adj.argtypes = [vp] * 6 + [i32] * 7 + [vp] * 4
     for fn in (lib.mrgan_lstm_scan_fwd, lib.mrgan_lstm_scan_bwd,
                lib.mrgan_lstm_scan_bwd_ext, lib.mrgan_lstm_scan_adj):
         fn.restype = i32
@@ -95,9 +96,10 @@ def build():
 
 def default_lanes(units, n_seq, rows):
     """The lanes a row the wrapper launches with, the fastest of
-    ``chip_smoke.py``'s phase 16 on an H100 (``PERF.md`` §6). At U = 4: 4
-    while a launch has few rows (a quarter of a row's step a lane; the
-    iwganlstm critic's 12 x 128), 2 from a critic update's 12 x 384 on
+    ``chip_smoke.py``'s phases 16 and 31 on an H100 (``PERF.md`` §6), for
+    the first order and the second alike. At U = 4: 4 while a launch has
+    few rows (a quarter of a row's step a lane; the iwganlstm critic's and
+    the Petzka penalty's 12 x 128), 2 from a critic update's 12 x 384 on
     (half the shuffles and warps: the stores' bytes set the pace there).
     At U = 16: 16."""
     if units == 4:
@@ -375,19 +377,22 @@ def lstm_scan_bwd(dh_seq, dh_last, zs, c, wh, dirs, reverse=False, *,
 
 
 def lstm_scan_bwd_ext(dh_seq, dh_last, zs, c, wh, dirs, reverse=False, *,
-                      dzs=None, dcs=None, carries=False):
+                      dzs=None, dcs=None, carries=False, lanes=None):
     """:func:`lstm_scan_bwd` with per-step cotangents entering: ``dzs``
     (S, T, B, 4U) on the saved zi, zf, tanh(g) and zo, ``dcs`` (S, T, B,
     U) on the cells, either may be None; with ``carries`` the backward's
     output gradient e and cell gradient k of every step are stored too.
-    Returns (dz, e, k), time-aligned, e and k (S, T, B, U) or None. One
-    launch of ``lstm_scan_bwd_ext`` (U lanes a row)."""
+    ``lanes`` as :func:`lstm_scan_bwd` takes it. Returns (dz, e, k),
+    time-aligned, e and k (S, T, B, U) or None. One launch of the backward
+    kernel compiled for what is given (``ext_launches`` counts it); without
+    ``dzs`` and ``dcs`` its dz is :func:`lstm_scan_bwd`'s bit for bit."""
     n_seq, steps, rows, units = _saved_shapes(
         zs, c, wh, dirs, dh_seq=dh_seq, dh_last=dh_last, dzs=dzs, dcs=dcs)
     if zs.device.type == "cpu":
         return bwd_ext_reference(dh_seq, dh_last, zs, c, wh, dirs, reverse,
                                  dzs, dcs, carries)
-    _lanes(units, n_seq, rows, None)
+    lanes = _lanes(units, n_seq, rows, lanes)
+    _aligned(zs=zs, c=c, dh_seq=dh_seq, dh_last=dh_last, dzs=dzs, dcs=dcs)
     global ext_launches
     lib = build()
     dz = torch.empty_like(zs)
@@ -396,7 +401,7 @@ def lstm_scan_bwd_ext(dh_seq, dh_last, zs, c, wh, dirs, reverse=False, *,
     if steps and rows:
         _call(lib.mrgan_lstm_scan_bwd_ext, zs.device, _ptr(dh_seq),
               _ptr(dh_last), zs.data_ptr(), c.data_ptr(), wh.data_ptr(),
-              _ptr(dzs), _ptr(dcs), n_seq, steps, rows, units, dirs,
+              _ptr(dzs), _ptr(dcs), n_seq, steps, rows, units, lanes, dirs,
               int(bool(reverse)), dz.data_ptr(), _ptr(e), _ptr(k))
         ext_launches += 1
     return dz, e, k
@@ -439,27 +444,30 @@ def adj_reference(delta, zs, c, e, k, wh, dirs, reverse=False):
     return order(e_bar), order(zs_bar), order(c_bar)
 
 
-def lstm_scan_adj(delta, zs, c, e, k, wh, dirs, reverse=False):
+def lstm_scan_adj(delta, zs, c, e, k, wh, dirs, reverse=False, *,
+                  lanes=None):
     """The VJP of :func:`lstm_scan_bwd` in one launch, a recurrence forward
     in time: ``delta`` (S, T, B, 4U) the cotangent on dz; ``zs``, ``c``
     as the forward saved them; ``e``, ``k`` the backward's carries
-    (:func:`lstm_scan_bwd_ext` with ``carries``); ``wh`` (S, U, 4U).
-    Returns (e_bar, zs_bar, c_bar), time-aligned: the cotangent on e (the
-    incoming output gradients; with dz it also gives the recurrent
-    weights', ``ops/lstm.py``), on the saved gates (S, T, B, 4U) and on
-    the cells (S, T, B, U)."""
+    (:func:`lstm_scan_bwd_ext` with ``carries``); ``wh`` (S, U, 4U);
+    ``lanes`` as :func:`lstm_scan_bwd` takes it. Returns (e_bar, zs_bar,
+    c_bar), time-aligned: the cotangent on e (the incoming output
+    gradients; with dz it also gives the recurrent weights',
+    ``ops/lstm.py``), on the saved gates (S, T, B, 4U) and on the cells
+    (S, T, B, U)."""
     n_seq, steps, rows, units = _saved_shapes(zs, c, wh, dirs, delta=delta,
                                               e=e, k=k)
     if zs.device.type == "cpu":
         return adj_reference(delta, zs, c, e, k, wh, dirs, reverse)
-    _lanes(units, n_seq, rows, None)
+    lanes = _lanes(units, n_seq, rows, lanes)
+    _aligned(delta=delta, zs=zs, c=c, e=e, k=k)
     global adj_launches
     lib = build()
     e_bar, zs_bar, c_bar = (torch.empty_like(t) for t in (c, zs, c))
     if steps and rows:
         _call(lib.mrgan_lstm_scan_adj, zs.device, delta.data_ptr(),
               zs.data_ptr(), c.data_ptr(), e.data_ptr(), k.data_ptr(),
-              wh.data_ptr(), n_seq, steps, rows, units, dirs,
+              wh.data_ptr(), n_seq, steps, rows, units, lanes, dirs,
               int(bool(reverse)), e_bar.data_ptr(), zs_bar.data_ptr(),
               c_bar.data_ptr())
         adj_launches += 1

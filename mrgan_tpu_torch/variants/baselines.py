@@ -29,6 +29,7 @@ scikit-learn.
 
 import dataclasses
 import importlib
+import numbers
 import time
 
 import numpy as np
@@ -92,17 +93,47 @@ class StandardScaler:
         return x
 
 
+def _check_components(n_components, n, d):
+    """scikit-learn's checks of ``PCA(n_components)`` (1.9,
+    ``decomposition/_pca.py``: the parameter's constraints, then
+    ``_fit_full``) on n rows of d features, with their messages: an int
+    in [0, min(n, d)] or a float in (0, 1)."""
+    if isinstance(n_components, numbers.Integral) and n_components >= 0:
+        if n_components > min(n, d):
+            # "auto" picks one of these two solvers for such a count
+            solver = ("covariance_eigh" if d <= 1000 and n >= 10 * d
+                      else "full")
+            raise ValueError(
+                "n_components=%s must be between 0 and min(n_samples, "
+                "n_features)=%d with svd_solver=%r"
+                % (n_components, min(n, d), solver))
+    elif not (isinstance(n_components, numbers.Real)
+              and not isinstance(n_components, numbers.Integral)
+              and 0 < n_components < 1):
+        raise ValueError(
+            "The 'n_components' parameter of PCA must be an int in the "
+            "range [0, inf), a float in the range (0.0, 1.0), a str among "
+            "{'mle'} or None. Got %r instead." % (n_components,))
+
+
 def pca_fit(x, n_components, device):
     """An exact PCA of the rows ``x`` (n, d) on ``device``, in float64:
     (mean (d,), components (k, d), explained variance (k,)) tensors.
 
-    The components are the leading eigenvectors of the covariance
-    (``torch.linalg.eigh``), each signed as scikit-learn's ``svd_flip(...,
-    u_based_decision=False)`` signs them: its entry of largest magnitude
-    positive. scikit-learn's ``PCA(svd_solver="auto")`` reaches the same
-    subspace by an eigendecomposition of the covariance, a full SVD or, at
-    most of the grid's shapes, an unseeded randomized SVD that approximates
-    it; this is the exact one."""
+    ``n_components`` is scikit-learn's: an int k in [0, min(n, d)], or a
+    float in (0, 1), the share of the variance to explain, which keeps
+    ``searchsorted(cumsum(ratio), share, side="right") + 1`` components
+    (``ratio``: each eigenvalue over the whole spectrum's sum); anything
+    else raises scikit-learn's ``ValueError``. The components are the
+    leading eigenvectors of the covariance (``torch.linalg.eigh``; its
+    eigenvalues clipped at 0, as scikit-learn clips them), each signed as
+    scikit-learn's ``svd_flip(..., u_based_decision=False)`` signs them:
+    its entry of largest magnitude positive. scikit-learn's
+    ``PCA(svd_solver="auto")`` reaches the same subspace by an
+    eigendecomposition of the covariance, a full SVD or, at most of the
+    grid's shapes, an unseeded randomized SVD that approximates it; this
+    is the exact one."""
+    _check_components(n_components, *np.shape(x))
     if device is None:
         raise ValueError("pca > 0 needs device= (nothing falls back to the "
                          "CPU)")
@@ -111,16 +142,23 @@ def pca_fit(x, n_components, device):
     xc = x - mean
     cov = torch.matmul(xc.T, xc) / (x.shape[0] - 1)
     evals, evecs = torch.linalg.eigh(cov)
-    comps = evecs.flip(1)[:, :n_components].T.contiguous()
+    evals = evals.flip(0).clamp(min=0.0)
+    if isinstance(n_components, numbers.Integral):
+        k = int(n_components)
+    else:
+        ratio = torch.cumsum(evals / evals.sum(), dim=0)
+        k = int(torch.searchsorted(ratio, ratio.new_tensor([n_components]),
+                                   right=True)) + 1
+    comps = evecs.flip(1)[:, :k].T.contiguous()
     pick = comps.abs().argmax(dim=1, keepdim=True)
     comps = comps * torch.sign(comps.gather(1, pick))
-    return mean, comps, evals.flip(0)[:n_components]
+    return mean, comps, evals[:k]
 
 
 def pca_scale(x_train, x_test, pca=0, scale=None, device=None):
     """pcaScale (wganlpctsemi.py:135-148): optional PCA to ``pca``
-    components (:func:`pca_fit` on ``device``, then required; the grids use
-    0), then the l2 row normalizer ("norm") or the standard scaler (any
+    components, or to the share ``pca`` in (0, 1) of the variance
+    (:func:`pca_fit` on ``device``, then required; the grids use 0), then the l2 row normalizer ("norm") or the standard scaler (any
     other ``scale``). float32 out."""
     x_train, x_test = np.asarray(x_train), np.asarray(x_test)
     if pca and pca > 0:

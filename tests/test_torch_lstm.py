@@ -389,6 +389,11 @@ def test_double_backward_wrappers_check_and_never_fall_back():
                                       torch.zeros((2, T, B, 3)),
                                       torch.zeros((2, T, B, 3)),
                                       torch.zeros((2, 3, 12))), 2)
+    with pytest.raises(ValueError, match="lanes a row"):
+        lstm_cuda.lstm_scan_bwd_ext(None, None, *meta(zs, c, wh), 2,
+                                    carries=True, lanes=8)
+    with pytest.raises(ValueError, match="lanes a row"):
+        lstm_cuda.lstm_scan_adj(*meta(zs, zs, c, c, c, wh), 2, lanes=16)
     before = (lstm_cuda.ext_launches, lstm_cuda.adj_launches)
     with pytest.raises(RuntimeError, match="nvcc"):
         lstm_cuda.lstm_scan_bwd_ext(None, None, *meta(zs, c, wh), 2,

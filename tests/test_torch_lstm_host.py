@@ -103,7 +103,7 @@ def host_source():
     s = s.replace("extern __shared__ __align__(16) float smem[];", "")
     s, n = re.subn(r"kernel<<<grid, kWarp, [^>]*>>>\(a\);",
                    "host_launch(kernel, grid, kWarp, a);", s)
-    assert n == 4, n
+    assert n == 3, n
     return s.replace("#include <cuda_runtime.h>", '#include "cuda_runtime.h"')
 
 
@@ -125,8 +125,8 @@ def host_lib(tmp_path_factory):
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.mrgan_lstm_scan_fwd.argtypes = [vp] * 5 + [i32] * 7 + [vp] * 5
     lib.mrgan_lstm_scan_bwd.argtypes = [vp] * 5 + [i32] * 7 + [vp] * 2
-    lib.mrgan_lstm_scan_bwd_ext.argtypes = [vp] * 7 + [i32] * 6 + [vp] * 4
-    lib.mrgan_lstm_scan_adj.argtypes = [vp] * 6 + [i32] * 6 + [vp] * 4
+    lib.mrgan_lstm_scan_bwd_ext.argtypes = [vp] * 7 + [i32] * 7 + [vp] * 4
+    lib.mrgan_lstm_scan_adj.argtypes = [vp] * 6 + [i32] * 7 + [vp] * 4
     return lib
 
 
@@ -211,23 +211,27 @@ def test_unsupported_lanes_return_an_error(host_lib):
         None, None, _ptr(z), _ptr(z), _ptr(z), 2, 1, 1, 12, 4, 2, 0,
         _ptr(z), None) == -1
     assert host_lib.mrgan_lstm_scan_bwd_ext(
-        None, None, _ptr(z), _ptr(z), _ptr(z), None, None, 2, 1, 1, 8, 2, 0,
-        _ptr(z), None, None, None) == -1
+        None, None, _ptr(z), _ptr(z), _ptr(z), None, None, 2, 1, 1, 4, 8, 2,
+        0, _ptr(z), None, None, None) == -1
     assert host_lib.mrgan_lstm_scan_adj(
-        _ptr(z), _ptr(z), _ptr(z), _ptr(z), _ptr(z), _ptr(z), 2, 1, 1, 8, 2,
-        0, _ptr(z), _ptr(z), _ptr(z), None) == -1
+        _ptr(z), _ptr(z), _ptr(z), _ptr(z), _ptr(z), _ptr(z), 2, 1, 1, 16, 4,
+        2, 0, _ptr(z), _ptr(z), _ptr(z), None) == -1
 
 
-@pytest.mark.parametrize("units", [4, 16])
+@pytest.mark.parametrize("units,lanes", [
+    (units, lanes) for units, variants in lstm_cuda.LANES.items()
+    for lanes in variants])
 @pytest.mark.parametrize("dirs,reverse,sequences",
                          [(2, False, False), (1, True, True)])
-def test_host_build_of_the_double_backward_kernels(host_lib, units, dirs,
-                                                   reverse, sequences):
-    """lstm_scan_bwd_ext without cotangents (its carries stored) is
-    lstm_scan_bwd's variant of U lanes a row bit for bit; with cotangents,
-    and lstm_scan_adj, within rounding of the plain versions, over a
-    partial last block of rows."""
-    steps, rows, n_seq = 19, 5, 2 * dirs
+def test_host_build_of_the_double_backward_kernels(host_lib, units, lanes,
+                                                   dirs, reverse, sequences):
+    """Every lanes-a-row variant of the double backward's two kernels, over
+    a partial last chunk of steps and a partial last block of rows:
+    lstm_scan_bwd_ext without cotangents (its carries stored) is
+    lstm_scan_bwd's dz bit for bit; with cotangents, and lstm_scan_adj,
+    within rounding of the plain versions; and each result bit for bit the
+    first variant's."""
+    steps, rows, n_seq = 37, 9, 2 * dirs
     gen = torch.Generator().manual_seed(6)
     rand = lambda *s: torch.randn(s, generator=gen)  # noqa: E731
     wh = 0.5 * rand(n_seq, units, 4 * units)
@@ -235,23 +239,37 @@ def test_host_build_of_the_double_backward_kernels(host_lib, units, dirs,
                                                4 * units), wh, dirs, reverse)
     dh_seq = rand(n_seq, steps, rows, units) if sequences else None
     dh_last = rand(n_seq, rows, units)
-    dzs, dcs = rand(*zs.shape), rand(*c.shape)
+    dzs, dcs, delta = rand(*zs.shape), rand(*c.shape), rand(*zs.shape)
     out = lambda *like: [torch.empty_like(t) for t in like]  # noqa: E731
 
-    def ext(extras, carries):
+    def ext(lanes, extras, carries):
         dz, e, k = out(zs, c, c)
         assert host_lib.mrgan_lstm_scan_bwd_ext(
             _ptr(dh_seq), _ptr(dh_last), _ptr(zs), _ptr(c), _ptr(wh),
             *(map(_ptr, extras) if extras else (None, None)), n_seq, steps,
-            rows, units, dirs, int(reverse), _ptr(dz),
+            rows, units, lanes, dirs, int(reverse), _ptr(dz),
             *((_ptr(e), _ptr(k)) if carries else (None, None)), None) == 0
         return dz, e, k
 
-    dz, e, k = ext(None, True)
+    def adj(lanes, e, k):
+        bars = out(c, zs, c)
+        assert host_lib.mrgan_lstm_scan_adj(
+            _ptr(delta), _ptr(zs), _ptr(c), _ptr(e), _ptr(k), _ptr(wh),
+            n_seq, steps, rows, units, lanes, dirs, int(reverse),
+            *map(_ptr, bars), None) == 0
+        return bars
+
+    def variant(lanes):
+        dz, e, k = ext(lanes, None, True)
+        return [dz, e, k, ext(lanes, (dzs, dcs), False)[0],
+                ext(lanes, (dzs, None), False)[0]] + adj(lanes, e, k)
+
+    got = variant(lanes)
+    dz, e, k, dz_x, dz_z = got[:5]
     dz_bwd = torch.empty_like(zs)
     assert host_lib.mrgan_lstm_scan_bwd(
         _ptr(dh_seq), _ptr(dh_last), _ptr(zs), _ptr(c), _ptr(wh), n_seq,
-        steps, rows, units, units, dirs, int(reverse), _ptr(dz_bwd),
+        steps, rows, units, lanes, dirs, int(reverse), _ptr(dz_bwd),
         None) == 0
     assert torch.equal(dz, dz_bwd)
     want = lstm_cuda.bwd_ext_reference(dh_seq, dh_last, zs, c, wh, dirs,
@@ -259,18 +277,17 @@ def test_host_build_of_the_double_backward_kernels(host_lib, units, dirs,
     for name, a, b in zip(("dz", "e", "k"), (dz, e, k), want):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
                                    atol=1e-5, err_msg=name)
-    got = ext((dzs, dcs), False)[0]
-    want_x = lstm_cuda.bwd_ext_reference(dh_seq, dh_last, zs, c, wh, dirs,
-                                         reverse, dzs=dzs, dcs=dcs)[0]
-    np.testing.assert_allclose(got.numpy(), want_x.numpy(), rtol=1e-4,
-                               atol=1e-5, err_msg="dz with cotangents")
-    delta = rand(*zs.shape)
-    bars = out(c, zs, c)
-    assert host_lib.mrgan_lstm_scan_adj(
-        _ptr(delta), _ptr(zs), _ptr(c), _ptr(e), _ptr(k), _ptr(wh), n_seq,
-        steps, rows, units, dirs, int(reverse), *map(_ptr, bars),
-        None) == 0
+    for name, a, extras in (("dz with cotangents", dz_x, (dzs, dcs)),
+                            ("dz with dzs alone", dz_z, (dzs, None))):
+        want_x = lstm_cuda.bwd_ext_reference(dh_seq, dh_last, zs, c, wh,
+                                             dirs, reverse, *extras)[0]
+        np.testing.assert_allclose(a.numpy(), want_x.numpy(), rtol=1e-4,
+                                   atol=1e-5, err_msg=name)
     want = lstm_cuda.adj_reference(delta, zs, c, e, k, wh, dirs, reverse)
-    for name, a, b in zip(("e_bar", "zs_bar", "c_bar"), bars, want):
+    for name, a, b in zip(("e_bar", "zs_bar", "c_bar"), got[5:], want):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
                                    atol=1e-4, err_msg=name)
+    first = lstm_cuda.LANES[units][0]
+    if lanes != first:
+        for a, b in zip(got, variant(first)):
+            assert torch.equal(a, b)

@@ -151,6 +151,36 @@ def test_pca_scale_matches_the_jax_package(n, d, solver, scale):
                                rtol=1e-10)
 
 
+@pytest.mark.parametrize("pca", [10, 30])
+def test_pca_past_the_rank_raises_as_the_jax_package(pca):
+    """An int count above min(n, d) is refused with scikit-learn's
+    message, as the JAX package's scikit-learn PCA refuses it."""
+    rng = np.random.RandomState(8)
+    a, b = (rng.randn(n, 8).astype(np.float32) for n in (20, 5))
+    with pytest.raises(ValueError, match="must be between 0 and") as want:
+        jax_baselines.pca_scale(a, b, pca=pca, scale="scale")
+    with pytest.raises(ValueError) as got:
+        baselines.pca_scale(a, b, pca=pca, scale="scale", device="cpu")
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("share", [0.9, 0.5])
+def test_pca_to_a_share_of_the_variance_matches_the_jax_package(share):
+    """A float count in (0, 1) keeps the components that explain more than
+    that share of the variance: the JAX package's shape and values, at
+    test_pca_scale_matches_the_jax_package's tolerance."""
+    rng = np.random.RandomState(9)
+    a = (rng.randn(50, 8) * np.linspace(3, 0.2, 8) + 1).astype(np.float32)
+    b = rng.randn(5, 8).astype(np.float32)
+    got = baselines.pca_scale(a, b, pca=share, scale="scale", device="cpu")
+    want = jax_baselines.pca_scale(a, b, pca=share, scale="scale")
+    assert 1 < want[0].shape[1] < 8
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == np.float32 and g.shape == w.shape
+        np.testing.assert_allclose(g, w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max())
+
+
 def test_pca_spans_scikit_learns_randomized_subspace():
     """Where scikit-learn draws an unseeded randomized SVD, the port's
     exact PCA spans the subspace it approximates."""
