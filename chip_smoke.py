@@ -48,10 +48,12 @@ Phases (any failure raises and the script exits non-zero):
     of the kernel, the plain path and ``torch.stft`` (cuFFT) + |.|^2 + mel.
 12. The GAN tables: Table 3 at full scale through ``run_gan_loo``
     (modality 5, 100 % labels, 1 epoch, 72 objects in 12 launches of 6,
-    the labeled rows pinned to the protocol's draw order, peak memory);
-    the peak memory of the widest Table-5 launch (6 folds x 12,032
-    features); ``gan_main --tables 3 5 6`` and ``--tables 1 -v`` at 10
-    pokes per object, their printed structure checked.
+    the labeled rows pinned to the protocol's draw order, peak memory;
+    ``ops.scaler.fit_transform_pair`` on 3 of the first launch's folds held
+    to the same call on the CPU at 1e-5 of the scaled range); the peak memory
+    of the widest Table-5 launch (6 folds x 12,032 features); ``gan_main
+    --tables 3 5 6`` and ``--tables 1 -v`` at 10 pokes per object, their
+    printed structure checked.
 13. The MLP baseline: the 100-epoch, 50 %-label, seed-0 modality-5 cell
     held to ``artifacts/t24_nn.jsonl`` at phase 8's bars; updates/s, step
     time, device time and busy share as phase 10 measures them. (The
@@ -78,9 +80,11 @@ Phases (any failure raises and the script exits non-zero):
 17. The variant cells at full width: ``run_wgan_cell`` for iwgan and
     iwganlstm on modality 2 (7,200 x 1,200 -> 1,280, 6 folds stacked, 100
     % labels, seed 0) at the depths of ``artifacts/variant_ref.jsonl`` (the
-    JAX package's record), held to it at the DP-parity bars or the record's
-    seed-0 / seed-1 spread where that is wider, every fold clearly below
-    chance; updates/s, the
+    JAX package's record): iwgan held to it at the DP-parity bars or the
+    record's seed-0 / seed-1 spread where that is wider, every fold 0.1
+    below chance; iwganlstm held as one more draw of the record's six
+    seeds, every fold strictly below chance (the 0.1-margin verdict
+    printed: three of the record's seeds miss it); updates/s, the
     step's CUDA-event median, busy share, top operations and kernel
     launches; the 100-epoch iwganlstm cell's time, predicted from the step.
 18. ``wgan_grid -t 0`` for iwgan, iwganlstm, gan, ganlstm, nn and lstm,
@@ -236,7 +240,8 @@ from mrgan_tpu_torch.cli import tables, wgan_grid
 from mrgan_tpu_torch.data import mreo, preprocess, py2pickle, synthetic
 from mrgan_tpu_torch.models import losses, nets
 from mrgan_tpu_torch.models import variant_nets as vnets
-from mrgan_tpu_torch.ops import features, lstm, lstm_cuda, mel, mel_cuda
+from mrgan_tpu_torch.ops import (features, lstm, lstm_cuda, mel, mel_cuda,
+                                 scaler)
 from mrgan_tpu_torch.reports import plots
 from mrgan_tpu_torch.serve import MaterialClassifier, fit_classifier
 from mrgan_tpu_torch.train import gan, mlp, optim, protocol, svm
@@ -264,6 +269,8 @@ NN_REFERENCE = ROOT / "artifacts" / "t24_nn.jsonl"
 SVM_REFERENCE = ROOT / "artifacts" / "t2_svm.jsonl"
 FOLD_DELTA, MEAN_DELTA = 0.04, 0.015  # STATUS.md:29, tools/dp_parity.py
 SVM_FOLD_DELTA = 0.03                 # tests/test_native_svm.py:93
+SCALER_PAIR_RTOL = 1e-5  # fit_transform_pair, card vs CPU, of the range
+SCALER_PAIR_FOLDS = 3    # of a launch's 6: the check took 1.2 s on all 6
 PROFILE_STEPS = 50
 C_TIMES = (0.05, 0.1, 0.3, 0.5, 0.7, 1.0)  # Table 5's, less phase 6's 0.2 s
 SMOKE_POKES = 10
@@ -965,6 +972,9 @@ def loo_full_scale(dev, pokes=100, percent=100):
         for k in range(len(lab)):
             assert np.isin(lab[k], train[k]).all()
             assert not np.isin(test[k], train[k]).any()
+    scaler_pair_check(torch.cat([objects[n]["x"] for n in names]),
+                      trained[0][2][:SCALER_PAIR_FOLDS],
+                      trained[0][3][:SCALER_PAIR_FOLDS])
     print("phase 12a: run_gan_loo modality 5, %d %% labels, 1 epoch, 72 "
           "objects x %d pokes: %d launches of %d items (train %d x %d "
           "rows each), labeled rows pinned to the draw order; mean error "
@@ -977,6 +987,31 @@ def loo_full_scale(dev, pokes=100, percent=100):
              pokes * mel.num_frames(AUDIO_LEN, HOP),
              wall, peak / 1e9, before[0] / 1e9))
     return launches
+
+
+def scaler_pair_check(x_all, train, test):
+    """Phase 12a: ``ops.scaler.fit_transform_pair`` on the card, on
+    SCALER_PAIR_FOLDS folds of the first launch ((F, N, D) train and test
+    rows of the loaded features), held to the same call on a CPU copy of
+    the rows at SCALER_PAIR_RTOL of the scaled values' range."""
+    t0 = time.perf_counter()
+    got = scaler.fit_transform_pair(
+        *(x_all[torch.as_tensor(i, device=x_all.device)]
+          for i in (train, test)))
+    assert all(g.device == x_all.device for g in got), got[0].device
+    host = x_all.cpu()
+    want = scaler.fit_transform_pair(*(host[torch.as_tensor(i)]
+                                       for i in (train, test)))
+    err = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+    span = (max(float(w.max()) for w in want)
+            - min(float(w.min()) for w in want))
+    bar = SCALER_PAIR_RTOL * span
+    print("phase 12a: fit_transform_pair on %d folds of %d train / %d test "
+          "rows x %d: card vs CPU max_abs_err=%r (bar %r: %g of the scaled "
+          "range %.4f); %.3f s" % (
+              *train.shape, test.shape[1], x_all.shape[1], err, bar,
+              SCALER_PAIR_RTOL, span, time.perf_counter() - t0))
+    assert err <= bar, (err, bar)
 
 
 def widest_table5_peak(dev, rows=7200):
@@ -1160,7 +1195,12 @@ LEARNED_MARGIN = 0.1         # every fold's error at least this far below it
 # iwganlstm failed the two-seed bars at 8 and at 60 epochs: a bar that a
 # third draw of the same distribution passes about half the time. It is
 # held to the record's seed distribution instead (seed_distribution), and
-# the two-seed verdict is printed beside it.
+# the two-seed verdict is printed beside it. Nor is it held 0.1 below
+# chance: the record's worst folds over seeds 0-5 at 60 epochs read
+# 0.6867, 0.7258, 0.7958, 0.7008, 0.7808, 0.7950, three of six above that
+# bar. Every fold is held strictly below chance, the tighter of that and
+# seed_distribution's upper fold bound (0.7958 + FOLD_DELTA), as phase 19
+# holds the AE-GAN; the 0.1-margin verdict is printed, not held.
 TWO_SEED_HELD = ("iwgan",)
 T_995 = {3: 5.841, 4: 4.604, 5: 4.032, 6: 3.707, 7: 3.499}  # Student t, df
 LSTM_H_ATOL = 1e-5                        # h and logits vs the plain loop
@@ -1517,8 +1557,11 @@ def variant_cell(x2, y2, algorithm):
     depth, against the JAX package's seed-0 record at the DP-parity bars,
     or at the record's own seed-0 / seed-1 spread where that is wider: held
     there for the cells of TWO_SEED_HELD, reported for the others and held
-    to :func:`seed_distribution`. The record and the cell clearly below
-    chance on every fold. Returns (wall seconds, updates, LSTM kernel
+    to :func:`seed_distribution`. The record's seed 0 clearly below chance
+    on every fold (:func:`below_chance`, LEARNED_MARGIN below it); the
+    cells of TWO_SEED_HELD too, the others strictly below chance on every
+    fold, with the margin's verdict printed, not held (the record's other
+    seeds miss it). Returns (wall seconds, updates, LSTM kernel
     launches)."""
     epochs, bs, ref = variant_reference(algorithm)
     below_chance("the record of %s, seed 0" % algorithm, ref[0])
@@ -1542,10 +1585,20 @@ def variant_cell(x2, y2, algorithm):
             100 * mean_spread)
     if algorithm in TWO_SEED_HELD:
         hold_to_reference(name, errs, ref[0], fold_bar, mean_bar)
+        below_chance("phase 17 " + algorithm, errs)
     else:
         two_seed_verdict(name, errs, ref[0], fold_bar, mean_bar)
         seed_distribution("phase 17 " + algorithm, errs, ref)
-    below_chance("phase 17 " + algorithm, errs)
+        record_max = [float(e.max()) for _, e in sorted(ref.items())]
+        print("phase 17: %s: every fold below chance (%.4f): port max %.4f "
+              "(held); the 0.1-below-chance bar (%.4f) is %s by the port and "
+              "met by %d of the record's %d seeds (worst folds %s) (reported, "
+              "not held)" % (
+                  algorithm, CHANCE_ERROR, errs.max(), LEARNED_BAR,
+                  "met" if errs.max() <= LEARNED_BAR else "missed",
+                  sum(m <= LEARNED_BAR for m in record_max), len(record_max),
+                  np.round(record_max, 4).tolist()))
+        assert errs.max() < CHANCE_ERROR, (algorithm, errs)
     print("phase 17: %s: %d updates (6 folds x %d epochs x %d batches) in "
           "%.3f s: %.1f updates/s; LSTM kernel launches %s (forward, "
           "backward)" % (algorithm, updates, epochs, n_train // bs, wall,

@@ -31,6 +31,15 @@ def transform(x, mean, scale):
     return (x - mean) / scale
 
 
+def fit_transform_pair(x_train, x_test):
+    """Fit on ``x_train`` and transform it and ``x_test``, the reference's
+    use of the scaler. (N, D) rows, or (F, N, D) for F folds at once, each
+    fold scaled by its own train rows; the tensors stay where they are."""
+    mean, scale = fit(x_train)
+    mean, scale = mean.unsqueeze(-2), scale.unsqueeze(-2)
+    return transform(x_train, mean, scale), transform(x_test, mean, scale)
+
+
 def fit_numpy(x_train):
     """The host (numpy) twin of :func:`fit` for (N, D) rows, for fold prep
     before the upload (``train.protocol.scale_fold``)."""

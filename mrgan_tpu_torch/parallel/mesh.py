@@ -13,6 +13,8 @@ import math
 import torch
 import torch.distributed as dist
 
+from ..utils import device as device_lib
+
 
 class Mesh:
     """This rank's place in an (n_cell, n_data) grid of the world's ranks.
@@ -43,7 +45,8 @@ def make_mesh(n_cell=None, n_data=1, device=None):
     constructions: it builds every group with ``dist.new_group``. Unlike a
     JAX mesh it spans the whole world (a process outside it would have
     nothing to run). ``device``: this rank's device (default: the current
-    CUDA device under NCCL, else the CPU)."""
+    CUDA device under either backend, which raises without a card; gloo
+    ranks on the host pass "cpu")."""
     world = dist.get_world_size()
     if n_cell is None:
         n_cell = world // n_data
@@ -51,8 +54,8 @@ def make_mesh(n_cell=None, n_data=1, device=None):
         raise ValueError("mesh %dx%d needs %d ranks, the world has %d"
                          % (n_cell, n_data, n_cell * n_data, world))
     if device is None:
-        device = (torch.device("cuda", torch.cuda.current_device())
-                  if dist.get_backend() == "nccl" else torch.device("cpu"))
+        device_lib.resolve("cuda")
+        device = torch.device("cuda", torch.cuda.current_device())
     data_group = cell_group = None
     for c in range(n_cell):  # every rank builds every group, in one order
         g = dist.new_group(list(range(c * n_data, (c + 1) * n_data)))

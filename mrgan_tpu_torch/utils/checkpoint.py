@@ -14,6 +14,8 @@ run's ``generator``, this checkpoint refuses a file stamped with any other.
 import json
 import os
 
+from .stamp import generator_of
+
 
 class SweepCheckpoint:
     """Append-only {cell-key -> result} store backed by a JSONL file."""
@@ -30,9 +32,7 @@ class SweepCheckpoint:
                         continue
                     rec = json.loads(line)
                     self._done[self._key(rec["cell"])] = rec["result"]
-                    self.generators.add(
-                        (rec.get("stamp") or {}).get("generator",
-                                                     "unstamped"))
+                    self.generators.add(generator_of(rec))
         other = self.generators - {generator}
         if generator is not None and other:
             raise ValueError(
@@ -58,3 +58,17 @@ class SweepCheckpoint:
                 f.flush()
                 os.fsync(f.fileno())
         return result
+
+
+def file_generators(path):
+    """The set of generator versions stamped in a checkpoint JSONL file
+    (empty for no path or an absent file; "unstamped" counts rows without
+    a stamp)."""
+    gens = set()
+    if path and os.path.exists(path):
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if line:
+                    gens.add(generator_of(json.loads(line)))
+    return gens

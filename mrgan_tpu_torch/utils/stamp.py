@@ -41,3 +41,9 @@ def current(synthetic):
     if rnd:
         stamp["round"] = rnd
     return stamp
+
+
+def generator_of(record):
+    """The generator version a checkpoint JSONL record was produced under
+    ("unstamped" for a record without a stamp)."""
+    return (record.get("stamp") or {}).get("generator", "unstamped")

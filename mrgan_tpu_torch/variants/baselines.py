@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from ..models import variant_nets as vnets
 from ..train import forest, linear_svc, native_svm, optim, schedule
 from ..train import svm as svm_train
+from ..utils import device as device_lib
 from ..utils import rng as rng_util
 from ..utils import tree
 
@@ -155,14 +156,15 @@ def pca_fit(x, n_components, device):
     return mean, comps, evals[:k]
 
 
-def pca_scale(x_train, x_test, pca=0, scale=None, device=None):
+def pca_scale(x_train, x_test, pca=0, scale=None, device="cuda"):
     """pcaScale (wganlpctsemi.py:135-148): optional PCA to ``pca``
     components, or to the share ``pca`` in (0, 1) of the variance
-    (:func:`pca_fit` on ``device``, then required; the grids use 0), then the l2 row normalizer ("norm") or the standard scaler (any
-    other ``scale``). float32 out."""
+    (:func:`pca_fit` on ``device``, which raises without a card unless
+    it is "cpu"; the grids use 0), then the l2 row normalizer ("norm") or
+    the standard scaler (any other ``scale``) on the host. float32 out."""
     x_train, x_test = np.asarray(x_train), np.asarray(x_test)
     if pca and pca > 0:
-        mean, comps, _ = pca_fit(x_train, pca, device)
+        mean, comps, _ = pca_fit(x_train, pca, device_lib.resolve(device))
         x_train, x_test = (
             torch.matmul(torch.as_tensor(a, device=mean.device).to(
                 torch.float64) - mean, comps.T).cpu().numpy()

@@ -13,7 +13,9 @@ import torch
 from mrgan_tpu import MODALITY_NAMES
 from mrgan_tpu import serve as jax_serve
 from mrgan_tpu.train import protocol as jax_protocol
+from mrgan_tpu.utils import checkpoint as jax_checkpoint
 from mrgan_tpu.utils import metrics as jax_metrics
+from mrgan_tpu.utils import stamp as jax_stamp
 from mrgan_tpu_torch import MATERIALS, serve
 from mrgan_tpu_torch.cli import tables
 from mrgan_tpu_torch.data import synthetic
@@ -151,6 +153,37 @@ def test_checkpoint_of_another_generator_is_refused(tmp_path):
         _ctx(tmp_path, checkpoint=str(path))
     same = checkpoint.SweepCheckpoint(str(path), generator="r4i3")
     assert same.get(model="gan", table=1) == [0.5]
+
+
+# stamped, unstamped, "stamp": null and a stamp without a generator
+STAMP_RECORDS = (
+    {"cell": {"table": 1}, "result": [0.5], "stamp": {"generator": "r5i1"}},
+    {"cell": {"table": 2}, "result": [0.4], "stamp": {"generator": "real"}},
+    {"cell": {"table": 3}, "result": [0.3]},
+    {"cell": {"table": 4}, "result": [0.2], "stamp": None},
+    {"cell": {"table": 5}, "result": [0.1], "stamp": {"git": "abc"}},
+)
+
+
+@pytest.mark.parametrize("record", STAMP_RECORDS)
+def test_generator_of_matches_jax(record):
+    assert stamp.generator_of(record) == jax_stamp.generator_of(record)
+
+
+@pytest.mark.parametrize("where", ["file", "none", "missing"])
+def test_file_generators_matches_jax(tmp_path, where):
+    path = {"file": str(tmp_path / "c.jsonl"), "none": None,
+            "missing": str(tmp_path / "absent.jsonl")}[where]
+    if where == "file":
+        lines = [json.dumps(r) for r in STAMP_RECORDS]
+        lines.insert(2, "   ")  # a blank line is skipped
+        with open(path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+    got = checkpoint.file_generators(path)
+    assert got == jax_checkpoint.file_generators(path)
+    assert got == ({"r5i1", "real", "unstamped"} if where == "file"
+                   else set())
+    assert checkpoint.SweepCheckpoint(path).generators == got
 
 
 def test_programming_errors_propagate_and_device_faults_are_recorded(tmp_path):

@@ -444,6 +444,29 @@ def test_mesh_layout_and_groups(world):
             assert got == slice(start, min(start + per[n], n)), (n, got)
 
 
+@pytest.mark.parametrize("entry", ["make_mesh", "global_mesh"])
+def test_mesh_without_a_device_needs_a_card(tmp_path, monkeypatch, entry):
+    """With no device a mesh takes the current CUDA device under either
+    backend: in a world-1 gloo group without a card it raises
+    (utils/device.py::resolve), and nothing falls back to the CPU."""
+    import torch.distributed as dist
+
+    from mrgan_tpu_torch.parallel import mesh as mesh_lib
+    from mrgan_tpu_torch.parallel import multihost
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    build = {"make_mesh": mesh_lib.make_mesh,
+             "global_mesh": multihost.global_mesh}[entry]
+    dist.init_process_group("gloo", init_method="file://%s"
+                            % (tmp_path / "store"), world_size=1, rank=0)
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+        assert build(device="cpu").device == torch.device("cpu")
+    finally:
+        dist.destroy_process_group()
+
+
 def test_sweep_dp_step_runs_and_updates(world):
     """``make_sweep_dp_step`` on a (2, 2) mesh: finite metrics, the
     weights move, the padded input rows of d0 stay at their draw, and the

@@ -79,6 +79,39 @@ def test_scaler_fit_matches_jax():
         rtol=1e-5, atol=1e-5)
 
 
+def _scaler_rows(seed, n=50):
+    """(n, 6) rows with one constant and one near-constant column."""
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(n, 6) * [1, 10, 0.1, 1, 1, 1] + 5).astype(np.float32)
+    x[:, 3] = 7.0 + seed
+    x[:, 4] = 1000.0 + 1e-4 * (np.arange(n) % 2)
+    return x
+
+
+@pytest.mark.parametrize("folds", [None, 3])
+def test_fit_transform_pair_matches_jax(folds):
+    """The flat (50, 6) pair, and three folds at once held fold by fold to
+    the JAX call on each fold, at test_scaler_fit_matches_jax's bars."""
+    seeds = [0] if folds is None else range(folds)
+    train = [_scaler_rows(s) for s in seeds]
+    test = [_scaler_rows(10 + s, 20) for s in seeds]
+    if folds is None:
+        args = (torch.from_numpy(train[0]), torch.from_numpy(test[0]))
+    else:
+        args = (torch.from_numpy(np.stack(train)),
+                torch.from_numpy(np.stack(test)))
+    got_tr, got_te = scaler.fit_transform_pair(*args)
+    assert got_tr.shape == args[0].shape and got_te.shape == args[1].shape
+    assert got_tr.device == args[0].device
+    got_tr, got_te = got_tr.reshape(-1, 50, 6), got_te.reshape(-1, 20, 6)
+    for k in range(len(train)):
+        want_tr, want_te = jax_scaler.fit_transform_pair(train[k], test[k])
+        np.testing.assert_allclose(got_tr[k].numpy(), np.asarray(want_tr),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got_te[k].numpy(), np.asarray(want_te),
+                                   rtol=1e-5, atol=1e-5)
+
+
 def test_padding_and_scale_stats_match_jax():
     x = np.random.RandomState(1).randn(9, 760).astype(np.float32)
     for args in ((128,), (128, 1280), (8,)):

@@ -199,10 +199,28 @@ def test_pca_spans_scikit_learns_randomized_subspace():
                                rtol=0, atol=1e-3)
 
 
-def test_pca_needs_a_device():
+def test_pca_needs_a_device(monkeypatch):
+    """With no device the PCA runs on the card, and raises without one
+    (utils/device.py::resolve): nothing falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     a = np.random.RandomState(6).randn(20, 4)
+    for pca in (2, 0.5):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            baselines.pca_scale(a, a, pca=pca)
     with pytest.raises(ValueError, match="device="):
-        baselines.pca_scale(a, a, pca=2)
+        baselines.pca_fit(a, 2, None)
+
+
+@pytest.mark.parametrize("scale", [None, "norm", "scale"])
+def test_pca_scale_without_pca_needs_no_device(monkeypatch, scale):
+    """pca=0 is host work only: no device is resolved, and the result is
+    the one asked of the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a, b = np.random.RandomState(7).randn(2, 20, 4)
+    got = baselines.pca_scale(a, b, scale=scale)
+    want = baselines.pca_scale(a, b, scale=scale, device="cpu")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_native_routes_run_without_scikit_learn(monkeypatch):
