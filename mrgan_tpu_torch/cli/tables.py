@@ -207,7 +207,7 @@ class Ctx:
         label = "cell:" + ",".join(f"{k}={v}" for k, v in sorted(key.items()))
         t0 = time.perf_counter()
         try:
-            with profiling.annotate(label):
+            with profiling.span(label):
                 errors = [float(e) for e in fn()]
         except Exception as e:  # noqa: BLE001 — keep the sweep alive
             if self.args.strict or isinstance(e, PROGRAMMING_ERRORS):

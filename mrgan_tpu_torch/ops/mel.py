@@ -21,6 +21,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..utils import profiling
+
 _AMIN = 1e-10
 _TOP_DB = 80.0
 
@@ -214,32 +216,33 @@ def frontend_logmel(audio, sr=48000, n_fft=2048, hop_length=512, n_mels=128,
     XLA's CPU backend does not apply, so its result is float32 under either
     setting; the port's CPU result is that same float32 plain path.
     """
-    backend = os.environ.get("MRGAN_MEL_BACKEND", "auto").lower()
-    prec_name = _precision_name()
-    if backend == "auto":
-        backend = "pallas" if audio.device.type == "cuda" else "gemm"
-    elif backend not in ("gemm", "pallas"):
-        raise ValueError("MRGAN_MEL_BACKEND=%r; valid: auto/gemm/pallas"
-                         % (backend,))
-    if audio.device.type not in ("cuda", "cpu"):
-        raise ValueError("frontend_logmel serves cuda and cpu tensors, got %s"
-                         % audio.device)
-    if backend == "pallas":
-        if audio.device.type != "cuda":
-            raise ValueError("MRGAN_MEL_BACKEND=pallas runs the mel kernel, "
-                             "which takes a CUDA tensor; got %s"
-                             % audio.device)
-        from . import mel_cuda
+    with profiling.span("mel.frontend"):
+        backend = os.environ.get("MRGAN_MEL_BACKEND", "auto").lower()
+        prec_name = _precision_name()
+        if backend == "auto":
+            backend = "pallas" if audio.device.type == "cuda" else "gemm"
+        elif backend not in ("gemm", "pallas"):
+            raise ValueError("MRGAN_MEL_BACKEND=%r; valid: auto/gemm/pallas"
+                             % (backend,))
+        if audio.device.type not in ("cuda", "cpu"):
+            raise ValueError("frontend_logmel serves cuda and cpu tensors, "
+                             "got %s" % audio.device)
+        if backend == "pallas":
+            if audio.device.type != "cuda":
+                raise ValueError("MRGAN_MEL_BACKEND=pallas runs the mel "
+                                 "kernel, which takes a CUDA tensor; got %s"
+                                 % audio.device)
+            from . import mel_cuda
 
-        return mel_cuda.logmel(audio, sr=sr, n_fft=n_fft,
-                               hop_length=hop_length, n_mels=n_mels,
-                               flatten=flatten, precision=prec_name)
-    if audio.device.type != "cpu":
-        raise ValueError("MRGAN_MEL_BACKEND=gemm is the plain path, which "
-                         "the port runs on the CPU only; got %s"
-                         % audio.device)
-    return logmel(audio, sr=sr, n_fft=n_fft, hop_length=hop_length,
-                  n_mels=n_mels, flatten=flatten)
+            return mel_cuda.logmel(audio, sr=sr, n_fft=n_fft,
+                                   hop_length=hop_length, n_mels=n_mels,
+                                   flatten=flatten, precision=prec_name)
+        if audio.device.type != "cpu":
+            raise ValueError("MRGAN_MEL_BACKEND=gemm is the plain path, which "
+                             "the port runs on the CPU only; got %s"
+                             % audio.device)
+        return logmel(audio, sr=sr, n_fft=n_fft, hop_length=hop_length,
+                      n_mels=n_mels, flatten=flatten)
 
 
 def logmel_sharded(audio, mesh, axis="data", sr=48000, n_fft=2048,

@@ -24,7 +24,7 @@ from .data.preprocess import ShortWindowError  # noqa: F401 (re-exported)
 from .models import nets
 from .ops import features as feat_ops
 from .train import gan, protocol
-from .utils import params_io
+from .utils import params_io, profiling
 from .utils import rng as rng_util
 
 
@@ -79,11 +79,12 @@ class MaterialClassifier:
     def classify_pokes(self, temperature=None, force0=None, force1=None,
                        contact=None):
         """Raw resampled windows -> frontend -> material names."""
-        feats = feat_ops.assemble(
-            self.modality, temperature=self._tensor(temperature),
-            force0=self._tensor(force0), force1=self._tensor(force1),
-            contact=self._tensor(contact))
-        return self.classify(feats)
+        with profiling.span("serve.request"):
+            feats = feat_ops.assemble(
+                self.modality, temperature=self._tensor(temperature),
+                force0=self._tensor(force0), force1=self._tensor(force1),
+                contact=self._tensor(contact))
+            return self.classify(feats)
 
     def classify_raw_poke(self, raw, index=-1):
         """Online robot-side inference: one poke straight from the collection

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from ..models import losses, nets
 from ..ops import scaler
-from ..utils import tree
+from ..utils import profiling, tree
 from . import optim, schedule
 
 @dataclasses.dataclass(frozen=True)
@@ -376,18 +376,20 @@ def train_folds(generator, x_labeled, y_labeled, pool, x_test, y_test,
             lab, u1, u2 = (a[take][..., rows] for a in (lab, u1, u2))
         steps = []
         for b in range(nb):
-            rand = draw_step(generator, n_folds, bs, feat_dim, cfg)
-            if sliced:
-                rand = local_draws(rand, take, rows, bs)
-            state, out = train_step(state, data, lab[:, b], u1[:, b],
-                                    u2[:, b], rand, cfg=cfg, mask=mask,
-                                    group=group)
+            with profiling.span("gan.step"):
+                rand = draw_step(generator, n_folds, bs, feat_dim, cfg)
+                if sliced:
+                    rand = local_draws(rand, take, rows, bs)
+                state, out = train_step(state, data, lab[:, b], u1[:, b],
+                                        u2[:, b], rand, cfg=cfg, mask=mask,
+                                        group=group)
             if cfg.track_epoch_metrics:
                 steps.append(out)
         if cfg.track_epoch_metrics:
             means = [torch.stack(m).mean(dim=0) for m in zip(*steps)]
             epochs.append((*means, _test_error(state["disc"], x_test, y_test)))
-    errors = _test_error(state["disc"], x_test, y_test).cpu().numpy()
+    with profiling.span("gan.eval"):
+        errors = _test_error(state["disc"], x_test, y_test).cpu().numpy()
     aux = {"params": {"gen": state["gen"], "disc": state["disc"]}}
     if cfg.track_epoch_metrics:
         for name, per_epoch in zip(EPOCH_METRICS, zip(*epochs)):
@@ -462,7 +464,8 @@ def train_folds_indexed(generator, X, y, lab_idx, pool_idx, train_idx,
     if folds is not None:
         idx = [a[folds] for a in idx]
         folds = (folds, n_folds)
-    data = scale_folds(X, y, *(index_tensor(a, X.device) for a in idx))
+    with profiling.span("gan.prep"):
+        data = scale_folds(X, y, *(index_tensor(a, X.device) for a in idx))
     errors, aux = train_folds(generator, n_train=np.shape(train_idx)[-1],
                               valid_dim=valid_dim, cfg=cfg,
                               n_pool_valid=n_pool_valid, folds=folds,

@@ -25,7 +25,7 @@ layout of the JAX scan carry; torch has no carry).
 import numpy as np
 import torch
 
-from ..utils import tree
+from ..utils import profiling, tree
 
 STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -66,27 +66,29 @@ def update(grads, state, params, lr=6e-4, b1=0.5, b2=0.999, eps=1e-8,
            stride=1):
     """One Adam step. Returns (new params, new state); nothing is changed
     in place."""
-    t = state["t"] + stride
-    lr_t = lr_at(t, lr, b1, b2)
-    p = tree.leaves(params)
-    math = torch.float64 if p[0].dtype == torch.float64 else torch.float32
-    g = [x.to(math) for x in tree.leaves(grads)]
-    m_old, v_old = tree.leaves(state["m"]), tree.leaves(state["v"])
-    dtype = m_old[0].dtype
-    # b1 * m + (1 - b1) * g and b2 * v + (1 - b2) * g * g, in ``math``
-    m = torch._foreach_add(torch._foreach_mul([x.to(math) for x in m_old], b1),
-                           torch._foreach_mul(g, 1.0 - b1))
-    v = torch._foreach_add(
-        torch._foreach_mul([x.to(math) for x in v_old], b2),
-        torch._foreach_mul(torch._foreach_mul(g, 1.0 - b2), g))
-    m = [x.to(dtype) for x in m]
-    v = [x.to(dtype) for x in v]
-    # the parameter step reads the moments as stored
-    denom = torch._foreach_add(torch._foreach_sqrt([x.to(math) for x in v]),
-                               eps)
-    step = torch._foreach_div(torch._foreach_mul([x.to(math) for x in m], lr_t),
-                              denom)
-    new_params = torch._foreach_sub(p, step)
-    return (tree.unflatten(params, new_params),
-            {"m": tree.unflatten(params, m), "v": tree.unflatten(params, v),
-             "t": t})
+    with profiling.span("optim.update"):
+        t = state["t"] + stride
+        lr_t = lr_at(t, lr, b1, b2)
+        p = tree.leaves(params)
+        math = torch.float64 if p[0].dtype == torch.float64 else torch.float32
+        g = [x.to(math) for x in tree.leaves(grads)]
+        m_old, v_old = tree.leaves(state["m"]), tree.leaves(state["v"])
+        dtype = m_old[0].dtype
+        # b1 * m + (1 - b1) * g and b2 * v + (1 - b2) * g * g, in ``math``
+        m = torch._foreach_add(
+            torch._foreach_mul([x.to(math) for x in m_old], b1),
+            torch._foreach_mul(g, 1.0 - b1))
+        v = torch._foreach_add(
+            torch._foreach_mul([x.to(math) for x in v_old], b2),
+            torch._foreach_mul(torch._foreach_mul(g, 1.0 - b2), g))
+        m = [x.to(dtype) for x in m]
+        v = [x.to(dtype) for x in v]
+        # the parameter step reads the moments as stored
+        denom = torch._foreach_add(
+            torch._foreach_sqrt([x.to(math) for x in v]), eps)
+        step = torch._foreach_div(
+            torch._foreach_mul([x.to(math) for x in m], lr_t), denom)
+        new_params = torch._foreach_sub(p, step)
+        return (tree.unflatten(params, new_params),
+                {"m": tree.unflatten(params, m),
+                 "v": tree.unflatten(params, v), "t": t})

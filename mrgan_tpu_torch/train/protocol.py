@@ -34,6 +34,7 @@ import torch
 
 from ..ops import scaler as ops_scaler
 from ..utils import device as device_lib
+from ..utils import profiling
 from ..utils import rng as rng_util
 from . import gan, splits as splits_lib
 
@@ -346,21 +347,22 @@ def run_gan_loo(objects, percentlabeled, cfg=gan.GanConfig(), seed=0,
 
     Returns (names, errors) in dict order; ``on_result(name, err)`` fires per
     object as each block completes."""
-    rng = np.random.RandomState(seed)
-    names, offs, ds = objects_dataset(objects, cfg.pad_multiple, cfg.pad_min,
-                                      device)
-    if chunk is None:
-        chunk = loo_chunk(len(names), mesh)
-    errors = []
-    for block, idx, n_real in iter_loo_blocks(
-            names, offs, ds.y_host, percentlabeled, cfg.num_classes, rng,
-            chunk):
-        errs = run_indexed_folds(ds, idx, cfg, rng, mesh)[:n_real]
-        for i, e in zip(block, errs):
-            errors.append(float(e))
-            if on_result is not None:
-                on_result(names[i], float(e))
-    return names, np.asarray(errors)
+    with profiling.span("loo.call"):
+        rng = np.random.RandomState(seed)
+        names, offs, ds = objects_dataset(objects, cfg.pad_multiple,
+                                          cfg.pad_min, device)
+        if chunk is None:
+            chunk = loo_chunk(len(names), mesh)
+        errors = []
+        for block, idx, n_real in iter_loo_blocks(
+                names, offs, ds.y_host, percentlabeled, cfg.num_classes, rng,
+                chunk):
+            errs = run_indexed_folds(ds, idx, cfg, rng, mesh)[:n_real]
+            for i, e in zip(block, errs):
+                errors.append(float(e))
+                if on_result is not None:
+                    on_result(names[i], float(e))
+        return names, np.asarray(errors)
 
 
 def loo_chunk(n_names, mesh=None):

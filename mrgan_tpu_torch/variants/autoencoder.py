@@ -26,6 +26,7 @@ from ..models import nets
 from ..train import gan as gan_mod
 from ..train import optim, protocol, schedule
 from ..utils import device as device_lib
+from ..utils import profiling
 from ..utils import rng as rng_util
 from ..utils import tree
 
@@ -120,14 +121,17 @@ def ae_train_step(state, xb, cfg):
 def train_autoencoder(generator, x_train, cfg=AeConfig()):
     """MSE autoencoder training of F folds on (F, n, D) rows on the
     generator's device; returns the trained parameters."""
-    n_folds, n, d = x_train.shape
-    rows = torch.arange(n_folds, device=x_train.device)[:, None]
-    state = ae_init_state(generator, d, cfg, n_folds)
-    for _ in range(cfg.epochs):
-        perm = ae_draw_epoch(generator, n_folds, n, cfg)
-        for b in range(perm.shape[1]):
-            state, _ = ae_train_step(state, x_train[rows, perm[:, b]], cfg)
-    return state["params"]
+    with profiling.span("ae.call"):
+        n_folds, n, d = x_train.shape
+        rows = torch.arange(n_folds, device=x_train.device)[:, None]
+        state = ae_init_state(generator, d, cfg, n_folds)
+        for _ in range(cfg.epochs):
+            perm = ae_draw_epoch(generator, n_folds, n, cfg)
+            for b in range(perm.shape[1]):
+                with profiling.span("ae.step"):
+                    state, _ = ae_train_step(
+                        state, x_train[rows, perm[:, b]], cfg)
+        return state["params"]
 
 
 def train_folds(generator, x_labeled, y_labeled, pool, x_test, y_test,
