@@ -39,9 +39,8 @@ Phases (any failure raises and the script exits non-zero):
 9. ``fit_classifier`` on 600 rows at 2 epochs, save -> load, a request of
    6 pokes through ``classify_pokes``.
 10. Training times: updates/s (``bench.py``'s definition) over phase 8's
-    wall time; the median step time from CUDA events; device time per step,
-    device-busy share, the ten device operations that take the most time
-    and kernel launches per step, from ``torch.profiler`` over 50 steps.
+    wall time. (The host paces this 6-fold step; phases 13, 17 and 19 time
+    their steps.)
 11. The kernel at the Table-5 contact-time shapes: 100 pokes of 0.05, 0.1,
     0.3, 0.5, 0.7 and 1 s of ADC audio (F = 500, 1,000, 2,900, 4,700, 6,600
     and 9,400 frames) held to the plain path at phase 3's bars; device time
@@ -55,8 +54,10 @@ Phases (any failure raises and the script exits non-zero):
     --tables 3 5 6`` and ``--tables 1 -v`` at 10 pokes per object, their
     printed structure checked.
 13. The MLP baseline: the 100-epoch, 50 %-label, seed-0 modality-5 cell
-    held to ``artifacts/t24_nn.jsonl`` at phase 8's bars; updates/s, step
-    time, device time and busy share as phase 10 measures them. (The
+    held to ``artifacts/t24_nn.jsonl`` at phase 8's bars; updates/s; the
+    median step time from CUDA events; device time per step, device-busy
+    share, the top device operations and kernel launches per step, from
+    ``torch.profiler`` over 50 steps. (The
     100 % cell's 30,000 host-bound steps take over two minutes; the 50 %
     cell has half as many.)
 14. The SVM baseline: the 100 %-label, seed-0 modality-5 cell with the
@@ -196,15 +197,34 @@ Phases (any failure raises and the script exits non-zero):
     ``petzka_lp=True`` held the same way; a 2-epoch ``run_wgan_cell`` with
     it (errors, the share of updates with the penalty active, step time;
     no JAX record holds it).
+32. The fused Adam kernel (``csrc/adam.cu``, run before phase 3): three
+    updates from one state through ``optim.update`` (one launch each) and
+    through ``optim.foreach_step`` (the ``_foreach`` passes) on loo72's
+    discriminator and generator trees (72 folds, bf16 moments; the
+    discriminator also with bf16 weight gradients, as the bf16 shadows
+    give them) and the AE's (6 folds, float32 moments): every leaf of p,
+    m and v bit for bit; a float64 and a non-contiguous leaf refused; each
+    route's CUDA-event time, in turns, beside the byte bound (p, g, m and
+    v read once, p, m and v written once, at 3.35 TB/s). Every trainer of
+    phases 7-31 updates through the kernel; on each path its launches are
+    held to the path's updates (below).
 
 The kernel counts are set to 0 just before each path is driven (phase 4,
 then phases 6-7, phase 9's request, each path of phases 12-15, 17-18,
 19-25, 27 and 29-31; the ranks of phase 27 count in their own processes
 and return their counts) and read just after; the JSON line's
 ``launches`` is their sum.
-Phases 19, 20, 22, 23 and 30 launch no kernel, and check that they do
-not. Launches made to compare a kernel with its plain version or to time
-it are not counted.
+Phases 19, 20, 22, 23 and 30 launch neither the mel kernel nor the
+recurrence kernels, and check that they do not; those that train launch
+the Adam kernel. Launches made to compare a kernel with its plain version
+or to time it are not counted.
+The Adam kernel's count is set to 0 with a count of the ``optim.update``
+calls on CUDA leaves (``optim.update`` wrapped through its module after
+phase 32) just before each path the helpers drive, and before phases 7,
+8, 13 and 18's CLI, and held equal to it just after: one launch an
+update, 2 a GAN step and 1 an AE step. Each path's two counts are printed
+under the function that drove it; the JSON line's Adam ``launches`` are
+phase 12a's, the loo72 cell's path.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA
@@ -240,8 +260,8 @@ from mrgan_tpu_torch.cli import tables, wgan_grid
 from mrgan_tpu_torch.data import mreo, preprocess, py2pickle, synthetic
 from mrgan_tpu_torch.models import losses, nets
 from mrgan_tpu_torch.models import variant_nets as vnets
-from mrgan_tpu_torch.ops import (features, lstm, lstm_cuda, mel, mel_cuda,
-                                 scaler)
+from mrgan_tpu_torch.ops import (adam_cuda, features, lstm, lstm_cuda, mel,
+                                 mel_cuda, scaler)
 from mrgan_tpu_torch.reports import plots
 from mrgan_tpu_torch.serve import MaterialClassifier, fit_classifier
 from mrgan_tpu_torch.train import gan, mlp, optim, protocol, svm
@@ -677,7 +697,8 @@ def full_cell(ds, epochs=100):
     cfg = gan.GanConfig(epochs=epochs)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    errs = protocol.run_gan_cell(ds, percentlabeled=100, cfg=cfg, seed=0)
+    with adam_counted():
+        errs = protocol.run_gan_cell(ds, percentlabeled=100, cfg=cfg, seed=0)
     wall = time.perf_counter() - t0
     n_train = len(ds) - len(ds) // 6
     updates = 6 * epochs * (n_train // cfg.batch_size)
@@ -759,41 +780,6 @@ def fold_tensors(ds, percent, n_items=4):
            for tr, te in splits]
     return [torch.as_tensor(np.stack([f[i] for f in idx]).astype(np.int64),
                             device=ds.X.device) for i in range(n_items)]
-
-
-def step_times(ds, cell):
-    """Phase 10: updates/s of phase 8, then the step alone: CUDA-event
-    median, and device time, busy share, top operations and launches per
-    step from torch.profiler."""
-    errs, wall, updates = cell
-    print("phase 10: %d updates (6 folds x epochs x 120 batches) in %.3f s: "
-          "%.1f updates/s (phase 7 ran the same path first, as a warm-up)"
-          % (updates, wall, updates / wall))
-    cfg = gan.GanConfig()
-    lab, pool, train, test = fold_tensors(ds, 100)
-    data = gan.scale_folds(ds.X, ds.y, lab, pool, train, test)
-    generator = rng_util.make_generator(0, ds.X.device)
-    state = gan.init_state(gan.init_params(generator, ds.X.shape[1], cfg, 6),
-                           cfg)
-    li, ui, u2i = gan.epoch_schedule(generator, 6, lab.shape[1],
-                                     pool.shape[1], train.shape[1],
-                                     cfg.batch_size)
-    nb = li.shape[1]
-
-    def step(b):
-        nonlocal state
-        rand = gan.draw_step(generator, 6, cfg.batch_size, ds.X.shape[1], cfg)
-        state, _ = gan.train_step(state, data, li[:, b % nb], ui[:, b % nb],
-                                  u2i[:, b % nb], rand, cfg=cfg)
-
-    step_ms, busy, per_step, ops = time_steps(step)
-    print("phase 10: step (6 folds, batch 50, D=%d): median %.4f ms of 60 "
-          "(CUDA events, one step's draws included; %.1f updates/s); device "
-          "time %s per step over %d steps (torch.profiler): device busy "
-          "%.1f%% of the step; %.1f device operations per step" % (
-              ds.X.shape[1], step_ms, 6e3 / step_ms, fmt_ms(busy),
-              PROFILE_STEPS, 100 * busy / step_ms, per_step))
-    print_top_ops("phase 10", ops)
 
 
 # -- the kernel's bound and its library route ----------------------------------
@@ -904,10 +890,62 @@ def table5_shapes(dev, sms, pokes=100):
 
 def driven(fn):
     """fn() with the kernel counts set to 0 just before and read just
-    after: (result, DFT kernel launches, bin-group sums)."""
-    mel_cuda.launches = mel_cuda.reduce_launches = 0
-    result = fn()
+    after: (result, DFT kernel launches, bin-group sums). The Adam kernel's
+    launches are held to the path's updates (:func:`adam_counted`)."""
+    with adam_counted():
+        mel_cuda.launches = mel_cuda.reduce_launches = 0
+        result = fn()
     return result, mel_cuda.launches, mel_cuda.reduce_launches
+
+
+# the function that drove a path -> [optim.update calls on the card, Adam
+# kernel launches], over the paths :func:`adam_counted` read
+ADAM_PATHS = {}
+_adam = {"depth": 0, "updates": 0}
+# the counting helpers, skipped when the driving function is named
+DRIVEN_HELPERS = {"driven", "lstm_driven", "slice_driven", "all_driven",
+                  "driven_high", "recorded_ae_steps", "adam_counted",
+                  "__exit__", "<lambda>"}
+
+
+def count_updates():
+    """Wrap ``optim.update`` through its module, as every trainer calls it,
+    to count its calls on CUDA leaves."""
+    real = optim.update
+
+    def update(grads, state, params, *args, **kwargs):
+        if tree.leaves(params)[0].is_cuda:
+            _adam["updates"] += 1
+        return real(grads, state, params, *args, **kwargs)
+
+    optim.update = update
+
+
+@contextlib.contextmanager
+def adam_counted(name=None):
+    """The Adam kernel's launches and the updates set to 0 just before the
+    outermost counted path and read just after it: one launch an update
+    (every trainer's network fits one launch's leaf table), filed in
+    ADAM_PATHS under ``name`` or the function that drove the path."""
+    outer = _adam["depth"] == 0
+    if outer:
+        adam_cuda.launches = _adam["updates"] = 0
+    _adam["depth"] += 1
+    try:
+        yield
+    finally:
+        _adam["depth"] -= 1
+    if outer:
+        if name is None:
+            frame = sys._getframe(1)
+            while frame.f_code.co_name in DRIVEN_HELPERS:
+                frame = frame.f_back
+            name = frame.f_code.co_name
+        assert adam_cuda.launches == _adam["updates"], (
+            name, adam_cuda.launches, _adam["updates"])
+        row = ADAM_PATHS.setdefault(name, [0, 0])
+        row[0] += _adam["updates"]
+        row[1] += adam_cuda.launches
 
 
 def run_cli(main_fn, argv):
@@ -1089,7 +1127,8 @@ def mlp_phase(ds, epochs=100, percent=50):
     cfg = mlp.MlpConfig(epochs=epochs)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    errs = mlp.run_mlp_cell(ds, percentlabeled=percent, cfg=cfg, seed=0)
+    with adam_counted():
+        errs = mlp.run_mlp_cell(ds, percentlabeled=percent, cfg=cfg, seed=0)
     wall = time.perf_counter() - t0
     n_lab = 6 * int(10 * percent)
     updates = 6 * epochs * (n_lab // cfg.batch_size)
@@ -1235,8 +1274,9 @@ def lstm_counts():
 def lstm_driven(fn):
     """fn() with the recurrence kernels' counts set to 0 just before and
     read just after: (result, (forward launches, backward launches))."""
-    lstm_cuda.fwd_launches = lstm_cuda.bwd_launches = 0
-    result = fn()
+    with adam_counted():
+        lstm_cuda.fwd_launches = lstm_cuda.bwd_launches = 0
+        result = fn()
     return result, lstm_counts()
 
 
@@ -2355,8 +2395,10 @@ def high_training_set(dev, x_highest, pokes=100):
 def driven_high(fn):
     """fn() with the kernel counts set to 0 just before and read just after:
     (result, highest launches, high launches, bin-group sums)."""
-    mel_cuda.launches = mel_cuda.high_launches = mel_cuda.reduce_launches = 0
-    result = fn()
+    with adam_counted():
+        mel_cuda.launches = mel_cuda.high_launches = 0
+        mel_cuda.reduce_launches = 0
+        result = fn()
     return (result,) + high_counts()
 
 
@@ -3280,9 +3322,10 @@ def all_counts():
 def all_driven(fn):
     """fn() with the four recurrence kernels' counts set to 0 just before
     and read just after: (result, (fwd, bwd, bwd_ext, adj))."""
-    lstm_cuda.fwd_launches = lstm_cuda.bwd_launches = 0
-    lstm_cuda.ext_launches = lstm_cuda.adj_launches = 0
-    result = fn()
+    with adam_counted():
+        lstm_cuda.fwd_launches = lstm_cuda.bwd_launches = 0
+        lstm_cuda.ext_launches = lstm_cuda.adj_launches = 0
+        result = fn()
     return result, all_counts()
 
 
@@ -3692,6 +3735,95 @@ def double_backward_phase(dev, x2, y2):
 
 
 
+def adam_bytes(p, g, m):
+    """Bytes one update moves, each counted once: p, g, m and v read, p, m
+    and v written."""
+    return sum(x.numel() * (2 * x.element_size() + gk.element_size()
+                            + 4 * mk.element_size())
+               for x, gk, mk in zip(p, g, m))
+
+
+def adam_phase(dev, updates=3, gan_folds=72, ae_folds=6):
+    """Phase 32: the fused Adam kernel against the ``_foreach`` route on the
+    benchmark's training trees, bit for bit, and both timed. Returns the
+    kernel's JSON fields (loo72's discriminator: its largest tree)."""
+    gen = torch.Generator(device=dev).manual_seed(32)
+    trees = gan.init_params(gen, 3632, gan.GanConfig(), gan_folds)
+    ae_tree = autoencoder.ae_init(gen, 9600, autoencoder.AeConfig().nodes,
+                                  ae_folds, dev)
+    gan_adam = dict(lr=6e-4, b1=0.5, stride=2)
+    ae_adam = dict(lr=1e-3, b1=0.9, stride=1)
+    cases = (("loo72 D", trees["disc"], torch.bfloat16, gan_adam, False),
+             ("loo72 D, bf16 weight gradients", trees["disc"],
+              torch.bfloat16, gan_adam, True),
+             ("loo72 G", trees["gen"], torch.bfloat16, gan_adam, False),
+             ("ae", ae_tree, torch.float32, ae_adam, False))
+    fields = None
+    for name, params, mdt, adam, bf16_grads in cases:
+        state = optim.init(params, mdt, t0=-1 if adam["stride"] == 2 else 0)
+        ref = (tree.leaves(params), tree.leaves(state["m"]),
+               tree.leaves(state["v"]))
+        for _ in range(updates):
+            grads = tree.tree_map(lambda x: 1e-2 * torch.randn(
+                x.shape, generator=gen, device=dev), params)
+            if bf16_grads:
+                grads = optim.mm_shadow(grads)
+            lr_t = optim.lr_at(state["t"] + adam["stride"], adam["lr"],
+                               adam["b1"], 0.999)
+            before = adam_cuda.launches
+            params, state = optim.update(grads, state, params, **adam)
+            assert adam_cuda.launches == before + 1, adam_cuda.launches
+            ref = optim.foreach_step(*ref[:1], tree.leaves(grads), *ref[1:],
+                                     lr_t, adam["b1"], 0.999, 1e-8)
+            got = (tree.leaves(params), tree.leaves(state["m"]),
+                   tree.leaves(state["v"]))
+            for what, a, b in zip("pmv", got, ref):
+                differ = sum(int((x != y).sum()) for x, y in zip(a, b))
+                assert differ == 0 and all(
+                    x.dtype == y.dtype for x, y in zip(a, b)), (
+                    name, what, differ)
+        p, g = tree.leaves(params), tree.leaves(grads)
+        m, v = tree.leaves(state["m"]), tree.leaves(state["v"])
+        fused = lambda: optim.update(grads, state, params, **adam)  # noqa: E731
+        plain = lambda: optim.foreach_step(  # noqa: E731
+            p, g, m, v, lr_t, adam["b1"], 0.999, 1e-8)
+        times = {"fused": [], "plain": []}
+        for route in ("plain", "fused", "fused", "plain"):
+            times[route].append(cuda_ms(fused if route == "fused" else plain,
+                                        runs=10, warmup=2))
+        ms = {k: statistics.median(t) for k, t in times.items()}
+        nbytes = adam_bytes(p, g, m)
+        bound = 1e3 * nbytes / HBM_BYTES_S
+        n = sum(x.numel() for x in p)
+        print("phase 32: %s: %d leaves, %d parameters, %s moments, %.4f GB "
+              "an update; %d updates bit for bit the _foreach route (p, m, "
+              "v), one launch each; fused %.4f ms (%.1f%% of the %.4f ms "
+              "byte bound, %.0f GB/s), _foreach %.4f ms (%.1f%%); runs %s / "
+              "%s" % (name, len(p), n, str(mdt).split(".")[-1], nbytes / 1e9,
+                      updates, ms["fused"], 100 * bound / ms["fused"], bound,
+                      nbytes / ms["fused"] / 1e6, ms["plain"],
+                      100 * bound / ms["plain"],
+                      ["%.4f" % t for t in times["fused"]],
+                      ["%.4f" % t for t in times["plain"]]))
+        if fields is None:
+            fields = {"max_abs_err": 0.0, "ms": ms["fused"],
+                      "plain_ms": ms["plain"], "bound_ms": bound,
+                      "bound_by": "bytes"}
+    for case in ("float64", "non_contiguous"):
+        w = torch.zeros(6, 4, device=dev,
+                        dtype=torch.float64 if case == "float64"
+                        else torch.float32)
+        w = w if case == "float64" else w.t()
+        try:
+            optim.update({"w": torch.ones_like(w)}, optim.init({"w": w}),
+                         {"w": w})
+        except (TypeError, ValueError) as err:
+            print("phase 32: a %s leaf refused: %s" % (case, err))
+        else:
+            raise AssertionError("a %s CUDA leaf was taken" % case)
+    return fields
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; "
@@ -3706,17 +3838,25 @@ def main():
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(4) as pool:  # one nvcc (or g++) a source, side by side
-        builds = [pool.submit(m.build) for m in (mel_cuda, lstm_cuda)]
+        builds = [pool.submit(m.build)
+                  for m in (mel_cuda, lstm_cuda, adam_cuda)]
         builds += [pool.submit(serialdev.sim_path, name) for name in SIMS]
         for built in builds:
             built.result()
-    print("built %s, %s and the firmware simulators %s in %.3f s" % (
+    print("built %s, %s, %s and the firmware simulators %s in %.3f s" % (
         mel_cuda.library_path().name, lstm_cuda.library_path().name,
-        ", ".join(Path(b.result()).name for b in builds[2:]),
+        adam_cuda.library_path().name,
+        ", ".join(Path(b.result()).name for b in builds[3:]),
         time.perf_counter() - t0))
-    for line in (mel_cuda.build_log + lstm_cuda.build_log).splitlines():
+    for line in (mel_cuda.build_log + lstm_cuda.build_log
+                 + adam_cuda.build_log).splitlines():
         if any(w in line for w in ("registers", "spill", "Compiling")):
             print("  ptxas:", line.strip())
+
+    t0 = time.perf_counter()
+    adam_fields = adam_phase(dev)
+    print("phase 32: %.1f s" % (time.perf_counter() - t0))
+    count_updates()
 
     windows = request_windows(72, seed=0)
     win_dev = on(dev, windows)
@@ -3854,7 +3994,8 @@ def main():
     x, y, synth, contact = training_set(dev)
     ds = protocol.DeviceDataset(x, y, device=dev)
     t_phase = {"6": time.perf_counter() - phase_t0}
-    phase7_lines = entry_point("cuda")
+    with adam_counted("entry_point"):
+        phase7_lines = entry_point("cuda")
     train_launches = mel_cuda.launches
     t_phase["7"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
     print("training path: %d DFT kernel launches, %d bin-group sums (phases "
@@ -3865,7 +4006,9 @@ def main():
     (fit_launches, _), clf_path = fitted_classifier(dev, x, y, synth)
     t_phase["9"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
     training_kernel_times(contact)
-    step_times(ds, cell)
+    print("phase 10: %d updates (6 folds x epochs x 120 batches) in %.3f s: "
+          "%.1f updates/s (phase 7 ran the same path first, as a warm-up)"
+          % (cell[2], cell[1], cell[2] / cell[1]))
     t_phase["10"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
 
     # -- this slice: the tables, the baselines ---------------------------------
@@ -3898,7 +4041,8 @@ def main():
     full_depth_prediction(y2, step_ms)
     t_phase["17"] = time.perf_counter() - phase_t0 - sum(t_phase.values())
     with grid_depth(1):
-        grid_launches, mel_18, _ = driven(grid_cli)
+        with adam_counted("grid_cli"):
+            grid_launches, mel_18, _ = driven(grid_cli)
     assert mel_18 == 0, mel_18
     variant_launches = [a + b for a, b in zip(variant_launches,
                                               grid_launches)]
@@ -3982,6 +4126,16 @@ def main():
               plots_launches, total, high_24, collect_high, high_total,
               *variant_launches))
 
+    print("adam: launches = optim.update calls on the card, on each path "
+          "that updated (the function that drove it): %s" % ", ".join(
+              "%s %d = %d" % (name, launches, updates)
+              for name, (updates, launches) in ADAM_PATHS.items() if updates))
+    # the loo72 cell's path: D and G updated once each a step
+    loo_updates, loo_launches = ADAM_PATHS["loo_full_scale"]
+    assert loo_launches == loo_updates > 0 and loo_updates % 2 == 0, (
+        loo_launches, loo_updates)
+    assert ADAM_PATHS["ae_gan_phase"][0] > 0, ADAM_PATHS["ae_gan_phase"]
+
     print(gpu_line())
     lstm_source = "mrgan_tpu_torch/csrc/lstm_scan.cu"
     lstm_replaces = "mrgan_tpu/models/variant_nets.py:164"  # lax.scan
@@ -4025,7 +4179,14 @@ def main():
         "launches": n,
         **second_fields[name],
     } for name, n in zip(("lstm_scan_bwd_ext", "lstm_scan_adj"),
-                         variant_launches[2:])]}))
+                         variant_launches[2:])] + [{
+        "name": "adam",
+        "route": "cuda",
+        "source": "mrgan_tpu_torch/csrc/adam.cu",
+        "replaces": "mrgan_tpu/train/optim.py:87",  # XLA's fusion, no Pallas
+        "launches": loo_launches,
+        **adam_fields,
+    }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
